@@ -96,7 +96,8 @@ __global__ void segment_sum_f64_kernel(const int32_t* __restrict__ seg,
 // Ids outside [0, num_buckets) get rank 0 and are not counted (the padding
 // contract of the TPU kernel).
 // Bound: bytes -- the ids are read twice and the ranks written once; the
-// tile histograms add 3 x tiles x buckets x 4 bytes of traffic, which the
+// tile histograms add 4 x tiles x buckets x 4 bytes of traffic (written,
+// read and rewritten by the scan, read by the rank pass), which the
 // tile size keeps near the size of the ids.  The per-tile base table lives
 // in shared memory when it fits (dynamic shared memory, opted in above
 // 48 KB), else the warp works on its row of the global histogram in place.
@@ -106,11 +107,11 @@ __global__ void radix_hist_kernel(const int32_t* __restrict__ ids, long long n,
                                   int32_t* __restrict__ hist) {
   extern __shared__ int32_t sh[];
   const long long t = blockIdx.x;
+  // each block owns its tile's row, so it zeroes the counts it adds into
+  // (the caller's scratch is uninitialised)
   int32_t* h = use_smem ? sh : hist + t * num_buckets;
-  if (use_smem) {
-    for (int b = threadIdx.x; b < num_buckets; b += blockDim.x) h[b] = 0;
-    __syncthreads();
-  }
+  for (int b = threadIdx.x; b < num_buckets; b += blockDim.x) h[b] = 0;
+  __syncthreads();
   const long long lo = t * tile;
   long long hi = lo + tile;
   if (hi > n) hi = n;
@@ -260,7 +261,8 @@ int repro_segment_sum_f64(const void* seg, const void* vals, long long n,
   return static_cast<int>(cudaGetLastError());
 }
 
-// hist: [num_tiles * num_buckets] int32 scratch; counts: [num_buckets].
+// hist: [num_tiles * num_buckets] int32 scratch, uninitialised (every row is
+// written by radix_hist_kernel); counts: [num_buckets].
 int repro_radix_rank(const void* ids, long long n, int num_buckets, int tile,
                      void* hist, void* counts, void* rank, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);

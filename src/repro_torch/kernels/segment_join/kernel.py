@@ -128,7 +128,7 @@ def radix_rank(bucket_ids: torch.Tensor, num_buckets: int,
                 torch.zeros(B, dtype=torch.int32, device=dev))
     tile = _size(tile, "tile")
     num_tiles = -(-n // tile)
-    hist = torch.zeros(num_tiles * B, dtype=torch.int32, device=dev)
+    hist = torch.empty(num_tiles * B, dtype=torch.int32, device=dev)
     counts = torch.empty(B, dtype=torch.int32, device=dev)
     rank = torch.empty(n, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
