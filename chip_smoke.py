@@ -7,7 +7,8 @@ Run from the root of a checkout:  ``python3 chip_smoke.py [--seed 0]
 Phases (any mismatch or exception ends the run with a non-zero exit code):
 
 1. the card's name and power limit (``nvidia-smi``) and the build of the
-   hand-written kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a);
+   hand-written kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a, one
+   process per source);
 2. every kernel against its plain PyTorch version on the card, on the inputs
    the main path gives it, with timings (CUDA events, median of 20 launches)
    of the kernel, the plain version and, where one exists, the PyTorch
@@ -16,10 +17,17 @@ Phases (any mismatch or exception ends the run with a non-zero exit code):
 3. the main path, ``repro_torch.core.Session(policy="tensor",
    device="cuda")``, on a TPC-H SF1 deployment made with numpy from
    ``--seed``: (Q-a) lineitem ⋈ orders → filter → sort → sum, (Q-b) the same
-   with a projected relation root, (Q-c) GROUP BY l_suppkey; each answer is
-   held exactly against a numpy oracle written here, and the kernels' launch
-   counters must rise during each query;
-4. the same three queries at a small scale on the card and on the CPU
+   with a projected relation root, (Q-c) GROUP BY l_suppkey, (Q-d) orders
+   filtered by date, ORDER BY o_custkey, o_orderdate (the per-operator
+   device sort); each answer is held exactly against a numpy oracle written
+   here, and the kernels' launch counters must rise during each query;
+4. concurrent serving, ``repro_torch.core.QueryServer(device="cuda")`` over
+   the same tables (64 MB shared budget, 1 MB work_mem): a closed loop of
+   8 workers over Q-a..Q-d under ``policy="tensor"`` and ``"auto"``, then an
+   open loop of two Poisson tenants for 2 s; no query may fail or be shed,
+   every answer must equal the oracle, and the governor must never go over
+   budget;
+5. the four queries at a small scale on the card and on the CPU
    (``device="cpu"``, the plain versions), which must agree exactly.
 
 The script imports nothing of JAX.  The line before the last is the card as
@@ -102,7 +110,7 @@ def tpch(scale: float, seed: int):
 
 
 def oracle(orders, lineitem):
-    """The three answers with numpy alone: searchsorted join, masks,
+    """The four answers with numpy alone: searchsorted join, masks,
     lexsort, add.at."""
     import numpy as np
 
@@ -125,7 +133,16 @@ def oracle(orders, lineitem):
     np.add.at(cnts, inv, 1.0)
     qc = {"l_suppkey": uniq, "sum_l_extendedprice": sums,
           "count_l_quantity": cnts}
-    return qa, qb, qc
+    # Q-d: rows in orderkey order, so a stable sort keeps ties in that order
+    ock, ood = orders["o_custkey"], orders["o_orderdate"]
+    rows = np.nonzero(ood < D_1995_03_15)[0]
+    sel = rows[np.lexsort((ood[rows], ock[rows]))]
+    qd = {"orderkey": orders["orderkey"][sel], "o_custkey": ock[sel],
+          "o_orderdate": ood[sel]}
+    return {"Q-a": qa, "Q-b": qb, "Q-c": qc, "Q-d": qd}
+
+
+QUERIES = ("Q-a", "Q-b", "Q-c", "Q-d")
 
 
 def queries(sess):
@@ -142,6 +159,10 @@ def queries(sess):
         "Q-b": joined().select("orderkey", "b_o_orderdate", "l_extendedprice"),
         "Q-c": sess.table("lineitem").group_by(
             "l_suppkey", {"l_extendedprice": "sum", "l_quantity": "count"}),
+        "Q-d": (sess.table("orders")
+                .filter(col("o_orderdate") < D_1995_03_15)
+                .sort("o_custkey", "o_orderdate")
+                .select("orderkey", "o_custkey", "o_orderdate")),
     }
 
 
@@ -364,6 +385,70 @@ def kernel_phase(orders, lineitem, dev):
     return rows
 
 
+def sort_kernel_phase(orders, dev):
+    """The multi-key sort kernel on Q-d's inputs.  The row of the
+    ``kernels`` line is one radix sort pass over the int64 key the main path
+    sorts (``o_custkey`` of the 1995-03-15 filter's rows): its permutation
+    is ``torch.sort(col, stable=True).indices``, the library call.  The
+    whole ORDER BY (two key columns) and the 1,500,000-row sort with the
+    filter as a validity mask are checked and timed beside it."""
+    import torch
+
+    from repro_torch.core.tensor_engine import _lex_perm
+    from repro_torch.kernels.multikey_sort import kernel as K
+    from repro_torch.kernels.multikey_sort import ops, ref
+
+    ck = torch.from_numpy(orders["o_custkey"]).to(dev)
+    od = torch.from_numpy(orders["o_orderdate"]).to(dev)
+    valid = od < D_1995_03_15
+    ck_f, od_f = ck[valid].contiguous(), od[valid].contiguous()
+
+    def library(cols, mask):
+        """The library composition: stable LSD ``torch.sort`` passes
+        (``_lex_perm``, the fused fragment's sort), then the validity
+        pass."""
+        perm = _lex_perm(cols, cols[0].shape[0], dev)
+        if mask is not None:
+            perm = perm[torch.sort((~mask[perm]).to(torch.uint8),
+                                   stable=True).indices]
+        return perm
+
+    err = 0
+    checks = (((ck_f,), None), ((ck_f, od_f), None), ((ck, od), valid))
+    for cols, mask in checks:
+        got = ops.sort_perm(cols, mask)
+        for want in (ref.sort_perm_ref(cols, mask), library(cols, mask)):
+            if not torch.equal(got, want):
+                fail(f"radix_sort_pass: the permutation over {len(cols)} "
+                     f"key column(s) of {got.numel()} rows disagrees")
+            err = max(err, int_err((got,), (want,)))
+    for cols, mask, what in (((ck_f, od_f), None, "Q-d's ORDER BY"),
+                             ((ck, od), valid, "the masked variant")):
+        n = cols[0].numel()
+        t_b, by = bound(sum(c.numel() * c.element_size() for c in cols)
+                        + (n if mask is not None else 0) + n * 8,
+                        n * (len(cols) + (mask is not None)))
+        print(f"sort {what}: {len(cols)} key columns "
+              f"({', '.join(str(c.dtype) for c in cols)}), {n} rows, "
+              f"mask {mask is not None}: kernel "
+              f"{time_ms(lambda: ops.sort_perm(cols, mask)):.4f} ms, plain "
+              f"{time_ms(lambda: ref.sort_perm_ref(cols, mask), 5):.4f} ms, "
+              f"torch.sort composition "
+              f"{time_ms(lambda: library(cols, mask)):.4f} ms, bound "
+              f"{t_b:.4f} ms by {by}", flush=True)
+    n = ck_f.numel()
+    t_b, by = bound(n * 8 + n * 8, n)
+    return {"name": "radix_sort_pass", "route": "cuda",
+            "source": "src/repro_torch/csrc/multikey_sort.cu",
+            "replaces": "src/repro/kernels/multikey_sort/kernel.py:56",
+            "max_abs_err": err,
+            "ms": time_ms(lambda: K.radix_sort_pass(ck_f)),
+            "plain_ms": time_ms(lambda: ref.radix_sort_pass_ref(ck_f), 5),
+            "bound_ms": t_b, "bound_by": by,
+            "library_ms": time_ms(lambda: torch.sort(ck_f, stable=True)),
+            "shape": f"n={n}, int64 key (o_custkey of Q-d's rows)"}
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: the main path
 # ---------------------------------------------------------------------------
@@ -382,6 +467,7 @@ def main_path(orders, lineitem, want):
         "Q-a": ("radix_rank", "join_table_build", "join_table_probe"),
         "Q-b": ("radix_rank", "join_table_build", "join_table_probe"),
         "Q-c": ("segment_sum",),
+        "Q-d": ("radix_sort_pass",),
     }
     torch.cuda.reset_peak_memory_stats()
     report = {}
@@ -411,6 +497,8 @@ def main_path(orders, lineitem, want):
                 fail(f"{name} did not run as one fused fragment: {ops}")
             if set(syncs) != {1} or set(h2d) != {0}:
                 fail(f"{name}: warm host_syncs {syncs}, h2d bytes {h2d}")
+        if name == "Q-d" and "sort" not in ops:
+            fail(f"Q-d did not run the per-operator device sort: {ops}")
         report[name] = {"cold_s": cold,
                         "warm_p50_s": statistics.median(warm),
                         "warm_runs": WARM_RUNS, "ops": ops,
@@ -419,6 +507,95 @@ def main_path(orders, lineitem, want):
     launches = D.launch_counts()
     report["peak_allocated_bytes"] = torch.cuda.max_memory_allocated()
     return report, launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: concurrent serving
+# ---------------------------------------------------------------------------
+
+SERVE_TOTAL_MEM = 64 << 20
+SERVE_WORK_MEM = 1 << 20
+
+
+def check_served(label, rep, names, want) -> None:
+    """No failed or shed query, no over-budget event, and every served
+    answer equal to the oracle (the server turns exceptions into
+    FailedQuery records, so a kernel fault would otherwise pass)."""
+    if rep.failed:
+        f = rep.failed[0]
+        fail(f"{label}: {len(rep.failed)} queries failed, first "
+             f"{names[f.workload_idx]}: {f.error}: {f.message}")
+    if rep.shed:
+        fail(f"{label}: {len(rep.shed)} queries were shed")
+    if rep.governor.over_budget_events != 0:
+        fail(f"{label}: {rep.governor.over_budget_events} over-budget events")
+    for q in rep.queries:
+        check_answer(names[q.workload_idx], q, want[names[q.workload_idx]])
+
+
+def serving_closed(orders, lineitem, want, policy):
+    import collections
+
+    from repro_torch import device as D
+    from repro_torch.core import QueryServer
+
+    server = QueryServer({"orders": orders, "lineitem": lineitem},
+                         total_mem=SERVE_TOTAL_MEM, work_mem=SERVE_WORK_MEM,
+                         policy=policy, device="cuda")
+    qs = queries(server.session)
+    names = list(qs)
+    D.reset_launch_counts()
+    rep = server.serve([qs[k] for k in names], concurrency=8,
+                       queries_per_worker=4, warmup=1)
+    launches = D.launch_counts()
+    check_served(f"closed loop ({policy})", rep, names, want)
+    if policy == "tensor":
+        idle = [k for k, v in launches.items() if v <= 0]
+        if idle:
+            fail(f"closed loop (tensor): kernels {idle} were not launched")
+    paths = collections.Counter(f"{names[q.workload_idx]}:{q.paths}"
+                                for q in rep.queries)
+    return server, {"policy": policy, "counts": rep.counts,
+                    "p50_s": rep.latency.p50, "p99_s": rep.latency.p99,
+                    "p99_over_p50": rep.p99_over_p50, "qps": rep.qps,
+                    "wall_s": rep.wall_s, "paths": dict(sorted(paths.items())),
+                    "over_budget_events": rep.governor.over_budget_events,
+                    "launches": launches}
+
+
+def serving_open(server, policy, want, seed: int):
+    from repro_torch import device as D
+    from repro_torch.core import ArrivalProcess, TenantClass
+
+    qs = queries(server.session)
+    names = list(qs)
+    wl = [qs[k] for k in names]
+    D.reset_launch_counts()
+    rep = server.serve_open(
+        workloads={"prem": wl, "be": wl},
+        arrivals={"prem": ArrivalProcess(rate_qps=10, seed=seed + 1),
+                  "be": ArrivalProcess(rate_qps=10, seed=seed + 2)},
+        duration_s=2.0, workers=4, keep_relations=True,
+        tenants=[TenantClass("prem", deadline_s=5.0, priority=2,
+                             sheddable=False),
+                 TenantClass("be", deadline_s=5.0)])
+    launches = D.launch_counts()
+    check_served("open loop", rep, names, want)
+    c = rep.counts
+    if c["submitted"] != c["served"]:
+        fail(f"open loop: submitted {c['submitted']} != served {c['served']}")
+    if server.governor.held_bytes != 0:
+        fail(f"open loop: {server.governor.held_bytes} bytes still held")
+    tenants = {}
+    for t in ("prem", "be"):
+        lat = rep.tenant_latency(t)
+        tenants[t] = {"counts": rep.tenant_counts(t),
+                      "p50_s": lat.p50 if lat else None,
+                      "p99_s": lat.p99 if lat else None,
+                      "slo_attainment": rep.slo_attainment(t)}
+    return {"policy": policy, "counts": c,
+            "tenants": tenants, "wall_s": rep.wall_s,
+            "held_bytes": server.governor.held_bytes, "launches": launches}
 
 
 def profile_queries(orders, lineitem) -> None:
@@ -515,22 +692,26 @@ def main() -> None:
     print(f"card: {card_line} | torch {torch.__version__} "
           f"cuda {torch.version.cuda} | {kind}", flush=True)
     t0 = time.perf_counter()
-    D.kernel_library("segment_join")
-    print(f"kernel build: {time.perf_counter() - t0:.2f} s "
-          f"(nvcc {D.build_seconds():.2f} s)", flush=True)
+    for lib in ("segment_join", "multikey_sort"):
+        D.kernel_library(lib)
+    print(f"kernel build (segment_join.cu, multikey_sort.cu): "
+          f"{time.perf_counter() - t0:.2f} s (nvcc {D.build_seconds():.2f} s)",
+          flush=True)
     dev = torch.device("cuda")
 
     t0 = time.perf_counter()
     orders, lineitem = tpch(1.0, args.seed)
-    want_a, want_b, want_c = oracle(orders, lineitem)
-    want = {"Q-a": want_a, "Q-b": want_b, "Q-c": want_c}
+    want = oracle(orders, lineitem)
     print(f"data: {len(orders['orderkey'])} orders, "
           f"{len(lineitem['orderkey'])} lineitems, Q-b rows "
-          f"{len(want_b['orderkey'])}, Q-c groups {len(want_c['l_suppkey'])} "
+          f"{len(want['Q-b']['orderkey'])}, Q-c groups "
+          f"{len(want['Q-c']['l_suppkey'])}, Q-d rows "
+          f"{len(want['Q-d']['orderkey'])} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
     # phase 2: kernels against their plain versions
     rows = kernel_phase(orders, lineitem, dev)
+    rows.append(sort_kernel_phase(orders, dev))
     for r in rows:
         print(f"kernel {r['name']}: {r['ms']:.4f} ms (plain "
               f"{r['plain_ms']:.4f}, library {r['library_ms']}, bound "
@@ -539,7 +720,7 @@ def main() -> None:
 
     # phase 3: the main path, counters from 0
     report, launches = main_path(orders, lineitem, want)
-    for name in ("Q-a", "Q-b", "Q-c"):
+    for name in QUERIES:
         r = report[name]
         print(f"{name}: cold {r['cold_s']:.4f} s, warm p50 "
               f"{r['warm_p50_s']:.4f} s over {r['warm_runs']}, ops "
@@ -552,7 +733,25 @@ def main() -> None:
     if args.profile:
         profile_queries(orders, lineitem)
 
-    # phase 4: card vs CPU at small scale
+    # phase 4: concurrent serving, counters from 0 before each loop
+    serving = {}
+    for policy in ("tensor", "auto"):
+        t0 = time.perf_counter()
+        server, r = serving_closed(orders, lineitem, want, policy)
+        serving[f"closed_{policy}"] = r
+        print(f"closed loop ({policy}, 8 workers x 4): {r['counts']}, p50 "
+              f"{r['p50_s']:.4f} s, p99 {r['p99_s']:.4f} s, p99/p50 "
+              f"{r['p99_over_p50']:.3f}, {r['qps']:.1f} q/s, paths "
+              f"{r['paths']}, launches {r['launches']} "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    r = serving_open(server, "auto", want, args.seed)
+    serving["open_auto"] = r
+    print(f"open loop (auto, 2 s, 4 workers): {r['counts']}, tenants "
+          f"{r['tenants']}, held bytes {r['held_bytes']}, launches "
+          f"{r['launches']} ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    # phase 5: card vs CPU at small scale
     small_agreement(args.seed)
     print("small-scale card/CPU agreement: ok", flush=True)
 
@@ -562,9 +761,9 @@ def main() -> None:
             fail(f"kernel {r['name']} was not launched on the main path")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"queries": {k: report[k] for k in ("Q-a", "Q-b",
-                                                         "Q-c")},
-                      "peak_allocated_bytes": report["peak_allocated_bytes"]}))
+    print(json.dumps({"queries": {k: report[k] for k in QUERIES},
+                      "peak_allocated_bytes": report["peak_allocated_bytes"],
+                      "serving": serving}))
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {

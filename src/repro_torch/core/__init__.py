@@ -27,9 +27,11 @@ Layered, front to back:
     to share across concurrent sessions.
   * **Resources** — :class:`ResourceBroker` (typed :class:`MemoryLease`
     / :class:`DeviceLease` acquisition and the pressure quotes that make
-    ``auto`` queue-aware) over one :class:`MemoryGovernor` budget.  The
-    concurrent serving layer (``QueryServer``) and the sharded fragment
-    path are not ported yet.
+    ``auto`` queue-aware) over one :class:`MemoryGovernor` budget.
+  * **Serving** — :class:`QueryServer` runs closed-loop (``serve``) and
+    open-loop SLO (``serve_open``, :class:`ArrivalProcess`,
+    :class:`TenantClass`) query streams over one shared session on one
+    device.  The sharded fragment path is not ported yet.
 
 See ``docs/ARCHITECTURE.md`` for the full layer map, ``docs/query-api.md``
 for the front-end (including the ``explain()`` stage-chain notation), and
@@ -68,7 +70,10 @@ from .resource_broker import (BrokerStats, DeviceLease, DeviceQueue,
                               Reservation, ResourceBroker, ResourceRequest,
                               default_broker)
 from .runtime_profile import DEFAULT_PROFILE, RuntimeProfile, size_bucket
+from .server import (FailedQuery, QueryServer, ServeReport, ServedQuery,
+                     ShedQuery)
 from .session import Query, Session
+from .slo import ArrivalProcess, TenantClass
 from .spill import SpillManager
 from .tier import (TierConfig, TierLedger, TierManager, TierStats,
                    decode_column, encode_column)
@@ -87,7 +92,8 @@ from .tensor_engine import (
 )
 
 __all__ = [
-    "Aggregate", "BLOCK_BYTES", "BrokerInvariantViolation",
+    "Aggregate", "ArrivalProcess", "FailedQuery", "QueryServer",
+    "ServeReport", "ServedQuery", "ShedQuery", "TenantClass", "BLOCK_BYTES", "BrokerInvariantViolation",
     "BrokerStats", "CostConstants", "CostModel",
     "DEFAULT_PROFILE", "DeadlineExceeded", "Decision", "DeviceColumn",
     "DeviceDispatchError", "DeviceLease",

@@ -3,7 +3,7 @@
 The seed engine lowered every intermediate back to a host-numpy
 :class:`~repro_torch.core.relation.Relation` between operators — exactly the
 "premature materialization" the paper argues against.  A
-:class:`DeviceRelation` keeps columns as JAX device arrays across operators
+:class:`DeviceRelation` keeps columns as device tensors across operators
 and carries two pieces of deferred state instead of moving payload bytes:
 
   * a **pending gather index** per column (late materialization): a join or

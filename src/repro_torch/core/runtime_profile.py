@@ -1,8 +1,8 @@
 """Runtime feedback profile: observed wall times blended into cost predictions.
 
 The cost model's constants are host-dependent: seconds/row on *this* CPU,
-seconds/byte through *this* temp filesystem, dispatch overhead of *this* JAX
-backend.  Shipped defaults are fit on one development machine and drift
+seconds/byte through *this* temp filesystem, dispatch overhead of *this*
+device.  Shipped defaults are fit on one development machine and drift
 everywhere else — which is exactly how plan choices that are optimal under
 stale cost assumptions become brittle under actual run-time conditions
 (Graefe's robustness maps; the ROADMAP's N=50k selector regret).

@@ -57,7 +57,7 @@ class Session:
     """Query-stream scope: executor + selector + feedback + table registry.
 
     A Session is safe to share across worker threads (the serving
-    configuration; the port's QueryServer is still to come): the
+    configuration, :class:`~repro_torch.core.server.QueryServer`): the
     program cache, device column cache, and runtime profile it reaches are
     all lock-guarded, and passing a :class:`~repro_torch.core.memory_governor.
     MemoryGovernor` makes every linear operator draw its work_mem from the

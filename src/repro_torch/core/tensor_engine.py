@@ -26,10 +26,13 @@ one batched result fetch.  The ``*_device`` variants take and return
 discover its capacity), deferring all materialization to the query root.
 Capacities are padded to powers of two.
 
-Kernel dispatch follows the tensor's device: :func:`segment_sum_dispatch`
-and :func:`radix_hash_probe_dispatch` launch the hand-written CUDA kernels
-(:mod:`repro_torch.kernels.segment_join`) for CUDA tensors and take their
-plain PyTorch versions for CPU tensors, at every size.  Relational payloads
+Kernel dispatch follows the tensor's device: :func:`segment_sum_dispatch`,
+:func:`radix_hash_probe_dispatch` and :func:`sort_perm_device` launch the
+hand-written CUDA kernels (:mod:`repro_torch.kernels.segment_join`,
+:mod:`repro_torch.kernels.multikey_sort`) for CUDA tensors and take their
+plain PyTorch versions for CPU tensors, at every size.  The fused
+fragment's sort (``fused.py``) keeps :func:`_lex_perm`'s ``torch.sort``
+passes, as the reference keeps ``lax.sort`` there.  Relational payloads
 are 64-bit (SQL bigint) and every dtype here is stated explicitly: a float
 literal in PyTorch would otherwise be float32.
 """
@@ -397,23 +400,15 @@ def _lex_perm(key_cols, n: int, device) -> torch.Tensor:
     return perm
 
 
-def _multikey_perm(key_cols: Tuple[torch.Tensor, ...],
-                   valid: Optional[torch.Tensor]) -> torch.Tensor:
-    perm = _lex_perm(key_cols, key_cols[0].shape[0], key_cols[0].device)
-    if valid is not None:
-        # one extra stable LSD pass on validity: masked rows sink to the tail
-        # without disturbing key order among live rows
-        perm = perm[torch.sort((~valid[perm]).to(torch.uint8),
-                               stable=True).indices]
-    return perm
-
-
 def sort_perm_device(key_cols: Tuple[torch.Tensor, ...],
                      valid: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Sort permutation over key axes: stable LSD ``torch.sort`` passes
-    (the path the reference takes off a TPU).  Masked rows sink to the
-    tail."""
-    return _multikey_perm(tuple(key_cols), valid)
+    """Int64 sort permutation over key axes (most significant first):
+    stable LSD radix passes, one per key column, then one on validity so
+    masked rows sink to the tail.  CUDA tensors launch the multi-key sort
+    kernel (:mod:`repro_torch.kernels.multikey_sort`) for every key dtype,
+    CPU tensors take its plain version."""
+    from ..kernels.multikey_sort.ops import sort_perm
+    return sort_perm(tuple(key_cols), valid)
 
 
 def tensor_sort(

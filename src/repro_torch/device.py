@@ -13,9 +13,11 @@ covers the sources and the flags, so an edited source rebuilds) and loads
 the shared library with ``ctypes``.  Nothing here runs at import time.
 
 :data:`LAUNCHES` holds one plain integer per kernel.  Each kernel wrapper
-adds one where it launches its kernel, and nowhere else, so a run can show
-which kernels its main path went through (``reset_launch_counts`` before,
-``launch_counts`` after).
+adds one (:func:`count_launch`) where it launches its kernel, and nowhere
+else, so a run can show which kernels its main path went through
+(``reset_launch_counts`` before, ``launch_counts`` after).  The three take
+one lock: serving threads launch kernels concurrently, and ctypes releases
+the interpreter lock during a launch.
 """
 from __future__ import annotations
 
@@ -33,7 +35,8 @@ import numpy as np
 import torch
 
 __all__ = ["resolve_device", "synchronize", "to_host", "upload", "LAUNCHES",
-           "launch_counts", "reset_launch_counts", "kernel_library",
+           "count_launch", "launch_counts", "reset_launch_counts",
+           "kernel_library",
            "build_seconds", "NVCC_FLAGS"]
 
 DeviceLike = Union[str, torch.device, None]
@@ -50,17 +53,27 @@ LAUNCHES: Dict[str, int] = {
     "radix_rank": 0,
     "join_table_build": 0,
     "join_table_probe": 0,
+    "radix_sort_pass": 0,
 }
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(name: str) -> None:
+    """Add one launch of kernel ``name``; only its wrapper calls this."""
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
 
 
 def launch_counts() -> Dict[str, int]:
     """A snapshot of the per-kernel launch counters."""
-    return dict(LAUNCHES)
+    with _COUNT_LOCK:
+        return dict(LAUNCHES)
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _COUNT_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:

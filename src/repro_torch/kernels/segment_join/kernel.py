@@ -4,7 +4,7 @@ One wrapper per kernel.  Each checks the device, dtype, contiguity and shape
 of its inputs and raises on anything the kernel does not take, allocates its
 outputs and scratch with ``torch.empty``/``torch.zeros``, launches on
 ``torch.cuda.current_stream()``, raises if the launch reports a CUDA error,
-and adds one to its launch counter in :data:`repro_torch.device.LAUNCHES`.
+and adds one to its launch counter (:func:`repro_torch.device.count_launch`).
 The wrappers only take CUDA tensors; there is no fallback inside them (the
 plain versions in :mod:`.ref` serve CPU tensors, chosen in :mod:`.ops`).
 
@@ -22,7 +22,7 @@ import ctypes
 
 import torch
 
-from ...device import LAUNCHES, kernel_library
+from ...device import count_launch, kernel_library
 
 __all__ = ["segment_sum", "radix_rank", "join_table_build",
            "join_table_probe", "RADIX_TILE"]
@@ -85,7 +85,7 @@ def _launch(name: str, fn, *args) -> None:
         msg = _lib().repro_cuda_error_string(rc).decode()
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} "
                            f"({msg})")
-    LAUNCHES[name] += 1
+    count_launch(name)
 
 
 def _stream(dev: torch.device) -> int:

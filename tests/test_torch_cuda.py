@@ -107,7 +107,8 @@ def test_session_on_card_matches_cpu_and_launches_kernels(dev):
         qs = {"agg": joined.aggregate("p", "sum"),
               "rel": joined.select("ok", "b_d", "p"),
               "group": sess.table("l").group_by("s", {"p": "sum",
-                                                      "ok": "count"})}
+                                                      "ok": "count"}),
+              "order": sess.table("o").filter(col("d") < 900).sort("d")}
         res = {k: q.collect() for k, q in qs.items()}
         warm = qs["agg"].collect()
         assert warm.total_host_syncs == 1 and warm.total_h2d_bytes == 0
@@ -118,3 +119,130 @@ def test_session_on_card_matches_cpu_and_launches_kernels(dev):
     assert a["agg"].scalar == b["agg"].scalar
     assert a["rel"].relation.equals(b["rel"].relation)
     assert a["group"].relation.equals(b["group"].relation)
+    assert a["order"].relation.equals(b["order"].relation)
+
+
+_SORT_DTYPES = ["bool", "uint8", "int8", "int16", "int32", "int64", "uint16",
+                "uint32", "uint64", "float16", "bfloat16", "float32",
+                "float64"]
+
+
+def _sort_keys(dtype, n, rng, shape="random"):
+    """Keys of a dtype, made in numpy (floats in float64, with -0.0, NaN
+    and infinities, cast at the end)."""
+    if dtype == "bool":
+        a = rng.integers(0, 2, n).astype(bool)
+    elif dtype in ("float16", "bfloat16", "float32", "float64"):
+        a = rng.normal(size=n) * 5
+        if n > 16:
+            a[::7] = 0.0
+            a[1::11] = -0.0
+            a[2::13] = np.nan
+            a[3::17] = -np.inf
+            a[4::19] = np.inf
+    else:
+        info = np.iinfo(dtype)
+        a = rng.integers(info.min, info.max, n, endpoint=True,
+                         dtype=np.int64 if info.min < 0 else np.uint64
+                         ).astype(dtype)
+    if shape == "equal" and n:
+        a[:] = a[0]
+    elif shape in ("sorted", "reversed"):
+        a = np.sort(a)
+        if shape == "reversed":
+            a = a[::-1].copy()
+    t = torch.from_numpy(a)
+    return t.to(getattr(torch, dtype)) if a.dtype == np.float64 else t
+
+
+@pytest.mark.parametrize("dtype", _SORT_DTYPES)
+def test_radix_sort_pass_matches_plain_version(dev, dtype):
+    """Every key dtype the engine sorts, at edge sizes (empty, one row, a
+    tile and a row either side of it) and on equal, sorted and reverse
+    sorted keys, with and without an incoming permutation."""
+    from repro_torch import device as D
+    from repro_torch.kernels.multikey_sort import kernel, ref
+
+    rng = np.random.default_rng(17)
+    D.reset_launch_counts()
+    cases = [(n, "random") for n in (0, 1, 2047, 2048, 2049, 70_001)]
+    cases += [(5000, s) for s in ("equal", "sorted", "reversed")]
+    for n, shape in cases:
+        col = _sort_keys(dtype, n, rng, shape).to(dev)
+        perm = torch.from_numpy(rng.permutation(n)).to(dev)
+        for p in (None, perm):
+            got = kernel.radix_sort_pass(col, p)
+            assert torch.equal(got, ref.radix_sort_pass_ref(col, p)), \
+                (n, shape, p is None)
+    assert D.launch_counts()["radix_sort_pass"] == 2 * (len(cases) - 1)
+
+
+def test_sort_perm_on_card_matches_plain_and_library(dev):
+    """Several key columns and a validity mask: the kernel's permutation
+    equals the plain version's and the torch.sort composition's."""
+    from repro_torch.core.tensor_engine import _lex_perm, sort_perm_device
+    from repro_torch.kernels.multikey_sort import ref
+
+    rng = np.random.default_rng(23)
+    n = 300_000
+    cols = (_t(rng.integers(1, 5000, n), dev),
+            _t(rng.integers(0, 2400, n).astype(np.int32), dev),
+            _sort_keys("float64", n, rng).to(dev))
+    valid = _t(rng.random(n) < 0.5, dev)
+    for v in (None, valid):
+        got = sort_perm_device(cols, v)
+        assert torch.equal(got, ref.sort_perm_ref(cols, v))
+        lib = _lex_perm(cols, n, dev)
+        if v is not None:
+            lib = lib[torch.sort((~v[lib]).to(torch.uint8),
+                                 stable=True).indices]
+        assert torch.equal(got, lib)
+
+
+def test_radix_sort_pass_past_2_to_the_24_rows(dev):
+    """Index arithmetic past int32 products: 2**24 + 4097 rows."""
+    from repro_torch.kernels.multikey_sort import kernel
+
+    rng = np.random.default_rng(29)
+    n = (1 << 24) + 4097
+    col = _t(rng.integers(-2**31, 2**31, n).astype(np.int32), dev)
+    perm = torch.randperm(n, device=dev)
+    got = kernel.radix_sort_pass(col, perm)
+    want = perm[torch.sort(col[perm], stable=True).indices]
+    assert torch.equal(got, want)
+
+
+def test_query_server_on_card_matches_cpu(dev):
+    """The closed loop on the card: every answer equals the CPU server's,
+    no query fails, and the sort kernel runs under the serving threads."""
+    from repro_torch import device as D
+    from repro_torch.core import QueryServer, col
+
+    rng = np.random.default_rng(31)
+    n = 50_000
+    tables = {"o": {"k": np.arange(n, dtype=np.int64),
+                    "c": rng.integers(0, 900, n).astype(np.int64),
+                    "d": rng.integers(0, 2000, n).astype(np.int32)},
+              "l": {"k": rng.integers(0, n, 4 * n).astype(np.int64),
+                    "p": rng.integers(0, 10**6, 4 * n).astype(np.int64)}}
+    answers = {}
+    for name in ("cuda", "cpu"):
+        server = QueryServer(tables, total_mem=64 << 20, work_mem=1 << 20,
+                             policy="tensor", device=name)
+        s = server.session
+        wl = [s.table("l").join("o", on="k").filter(col("b_d") < 900)
+              .aggregate("p", "sum"),
+              s.table("o").filter(col("d") < 1000).sort("c", "d")
+              .select("k", "c", "d")]
+        D.reset_launch_counts()
+        rep = server.serve(wl, concurrency=4, queries_per_worker=3,
+                           warmup=1)
+        assert not rep.failed and rep.governor.over_budget_events == 0
+        if name == "cuda":
+            assert D.launch_counts()["radix_sort_pass"] > 0
+        answers[name] = {q.workload_idx: (q.scalar, q.relation)
+                         for q in rep.queries}
+    for idx, (scalar, rel) in answers["cpu"].items():
+        g_scalar, g_rel = answers["cuda"][idx]
+        assert g_scalar == scalar
+        assert (rel is None) or rel.equals(g_rel)

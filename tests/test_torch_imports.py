@@ -44,6 +44,25 @@ def test_every_module_imports_with_jax_blocked():
     assert int(out.stdout.strip()) >= 25  # core + kernels + device modules
 
 
+@pytest.mark.parametrize("module", [
+    "repro_torch.core.server", "repro_torch.core.slo",
+    "repro_torch.kernels.multikey_sort.ops"])
+def test_serving_and_sort_modules_stand_alone(module):
+    """The serving layer and the sort kernel's package load with JAX
+    blocked and pull in nothing of JAX or the reference."""
+    code = (
+        "import sys, importlib\n"
+        "sys.modules['jax'] = None\n"
+        f"importlib.import_module({module!r})\n"
+        "bad = [m for m in sys.modules if m == 'repro' or"
+        " m.startswith('repro.') or m.startswith('jax')]\n"
+        "assert not [m for m in bad if sys.modules[m] is not None], bad\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
 def test_sources_import_neither_jax_nor_the_reference():
     pat = re.compile(r"^\s*(import\s+(jax|repro)\b(?!_)|"
                      r"from\s+(jax|repro)(\.|\s)(?!_))", re.M)
