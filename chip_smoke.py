@@ -28,7 +28,23 @@ Phases (any mismatch or exception ends the run with a non-zero exit code):
    every answer must equal the oracle, and the governor must never go over
    budget;
 5. the four queries at a small scale on the card and on the CPU
-   (``device="cpu"``, the plain versions), which must agree exactly.
+   (``device="cpu"``, the plain versions), which must agree exactly;
+6. LM serving on the card, counters from 0: Phi-3.5-MoE
+   (``phi3.5-moe-42b-a6.6b``) at full width and 24 of its 32 layers in
+   bfloat16, random weights made on the card from ``--seed``; a prefill of
+   2 x 4096 tokens through ``make_prefill_step`` (the flash-attention
+   kernel, and the MoE dispatch/combine kernels on the einsum path), then
+   8 requests (prompt 64, 32 new tokens) through ``launch.serve``'s loop
+   (``BatchScheduler(4)``, whose admission sort launches the radix sort
+   kernel, and ``generate``); logits must be finite and every request
+   served;
+7. the Phi-3.5-MoE, Yi-9B and Gemma-2 smoke configs on the card and on
+   the CPU with the same float32 weights: prefill logits within 2e-4 and
+   ``generate``'s tokens equal.
+
+Phase 2 also holds the three LM kernels against their plain versions at
+phase 6's shapes; their ``launches`` come from phase 6, the relational
+kernels' from phase 3.
 
 The script imports nothing of JAX.  The line before the last is the card as
 ``nvidia-smi`` names it; the last line is one JSON object with the device.
@@ -36,6 +52,7 @@ The script imports nothing of JAX.  The line before the last is the card as
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import statistics
 import subprocess
@@ -55,6 +72,14 @@ H100_BYTES_PER_S = 3.35e12   # HBM3, NVIDIA H100 SXM data sheet
 # operations of these kernels: an upper bound on their rate, so the
 # operations bound is a lower bound
 H100_SCALAR_OPS_PER_S = 67e12
+# dense bf16 tensor-core peak (H100 SXM data sheet): the rate of the
+# attention products
+H100_BF16_OPS_PER_S = 989e12
+LM_ARCH = "phi3.5-moe-42b-a6.6b"
+LM_LAYERS = 24               # of 32: the bf16 weights fit one 80 GB card
+PREFILL_BATCH, PREFILL_LEN = 2, 4096
+SERVE_REQUESTS, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 4, 64, 32
+SMOKE_ARCHS = ("phi3.5-moe-42b-a6.6b", "yi-9b", "gemma2-9b")
 
 
 def fail(msg: str) -> None:
@@ -210,11 +235,11 @@ def time_ms(fn, reps: int = 20) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: int, ops: int):
+def bound(nbytes: int, ops: int, ops_per_s: float = H100_SCALAR_OPS_PER_S):
     """Least time for the work: bytes over the memory rate vs operations
     over the peak rate, whichever is larger."""
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = ops / H100_SCALAR_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -449,6 +474,181 @@ def sort_kernel_phase(orders, dev):
             "shape": f"n={n}, int64 key (o_custkey of Q-d's rows)"}
 
 
+ATTN_F32_TOL = 2e-5
+ATTN_BF16_ATOL, ATTN_BF16_RTOL = 2e-3, 2.0 ** -6
+
+
+def attn_err(got, want, what: str) -> float:
+    """Holds flash attention's output against its plain version (float32:
+    within ``ATTN_F32_TOL``; bf16: each element within ``ATTN_BF16_ATOL +
+    ATTN_BF16_RTOL * |want|``), prints the check and returns the max abs
+    error."""
+    import torch
+
+    diff = (got.float() - want.float()).abs()
+    if got.dtype == torch.float32:
+        allowed = torch.full_like(diff, ATTN_F32_TOL)
+        tol = f"{ATTN_F32_TOL}"
+    else:
+        allowed = ATTN_BF16_ATOL + ATTN_BF16_RTOL * want.float().abs()
+        tol = f"{ATTN_BF16_ATOL} + {ATTN_BF16_RTOL} * |plain|"
+    err = float(diff.max())
+    worst = float((diff / allowed).max())
+    print(f"flash_attention check {what}: max abs err {err:.3g}, worst "
+          f"err / allowed {worst:.3g} (tol {tol}), mean |plain| "
+          f"{float(want.float().abs().mean()):.3g}", flush=True)
+    if not worst <= 1.0:
+        fail(f"flash_attention ({what}) disagrees with its plain version: "
+             f"max abs err {err}, worst err / allowed {worst} (tol {tol})")
+    return err
+
+
+def lm_kernel_phase(dev, seed: int):
+    """The LM path's kernels at the shapes of phase 6's prefill: flash
+    attention over 2 x 4096 tokens of Phi-3.5-MoE's heads (32 query, 8 kv,
+    head dim 128, bf16, causal), and one routing slot's dispatch and
+    combine over its 8192 tokens (d 4096, 16 experts, capacity 1280), with
+    slots from a real top-2 routing.  Tolerances: attention in float32
+    within 2e-5 (the reference tests'); in bf16 each output within
+    ``ATTN_BF16_ATOL + ATTN_BF16_RTOL * |plain|``, two bf16 steps of its
+    own size, since at S 4096 a typical output is about 0.04 and the
+    reference tests' 3e-2 (set at S <= 256) would pass a wrong kernel;
+    exact agreement for dispatch/combine, whose kernels and plain versions
+    sum in the same order (float32 duplicates included)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention import ref as FR
+    from repro_torch.kernels.moe_dispatch import kernel as MK
+    from repro_torch.kernels.moe_dispatch import ops as MO
+    from repro_torch.kernels.moe_dispatch import ref as MR
+    from repro_torch.models.moe import _route, capacity_per_expert
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    rows = []
+    # flash attention at the prefill's shape
+    B, S, H, KH, Dh = PREFILL_BATCH, PREFILL_LEN, 32, 8, 128
+    q, k, v = randn(B, S, H, Dh), randn(B, S, KH, Dh), randn(B, S, KH, Dh)
+    scale = Dh ** -0.5
+
+    def flash():
+        return FK.flash_attention_fwd(q, k, v, causal=True, scale=scale)
+
+    got = flash()
+    want = FR.flash_attention_ref(q, k, v, causal=True, scale=scale)
+    err = attn_err(got, want, "causal, D=128, S=4096, bf16")
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+
+    def library():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              scale=scale, enable_gqa=True)
+
+    lib_err = float((library().transpose(1, 2).float()
+                     - want.float()).abs().max())
+    pairs = B * H * S * (S + 1) // 2
+    t_b, by = bound(2 * (q.numel() + k.numel() + v.numel() + got.numel()),
+                    2 * (Dh + Dh) * pairs, H100_BF16_OPS_PER_S)
+    rows.append({"name": "flash_attention", "route": "cuda",
+                 "source": "src/repro_torch/csrc/flash_attention.cu",
+                 "replaces": "src/repro/kernels/flash_attention/kernel.py:70",
+                 "max_abs_err": err, "ms": time_ms(flash),
+                 "plain_ms": time_ms(lambda: FR.flash_attention_ref(
+                     q, k, v, causal=True, scale=scale)),
+                 "bound_ms": t_b, "bound_by": by,
+                 "library_ms": time_ms(library),
+                 "shape": f"B={B}, S={S}, H={H}, KH={KH}, D={Dh}, bf16, "
+                          f"causal (SDPA differs from the plain version "
+                          f"by {lib_err:.3g})"})
+    # check only: the same inputs in float32
+    q, k, v = (t.float() for t in (q, k, v))
+    attn_err(flash(), FR.flash_attention_ref(q, k, v, causal=True,
+                                             scale=scale),
+             "causal, D=128, S=4096, float32")
+    del q, k, v, qt, kt, vt, got, want
+    # check only: Gemma-2's heads (16 query, 8 kv, head dim 256) with a
+    # window and the tanh soft-cap, cut to 1024 tokens (window 512 so
+    # that it masks), in bf16 and float32
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = (randn(1, 1024, h, 256, dtype=dtype) for h in (16, 8, 8))
+        kw = dict(causal=True, window=512, cap=50.0, scale=256 ** -0.5)
+        attn_err(FK.flash_attention_fwd(q, k, v, **kw),
+                 FR.flash_attention_ref(q, k, v, **kw),
+                 f"D=256, window=512, cap=50, {dtype}")
+
+    # dispatch and combine on one routing slot of a real top-2 routing
+    cfg = get_config(LM_ARCH)
+    T, d, E = PREFILL_BATCH * PREFILL_LEN, cfg.d_model, cfg.num_experts
+    C = capacity_per_expert(T, E, cfg.experts_per_token, cfg.capacity_factor)
+    x = randn(T, d)
+    router = randn(d, E, dtype=torch.float32) / d ** 0.5
+    topk_idx, topk_w, _ = _route({"router": router}, x, cfg)
+    slot = MO.expert_slots(topk_idx, E)
+    eidx = topk_idx[:, 0].to(torch.int32).contiguous()
+    sl = slot[:, 0].contiguous()
+    w = topk_w[:, 0].contiguous()
+    buf = MK.moe_dispatch(x, eidx, sl, E, C)
+    err = float((buf.float() - MR.dispatch_ref(x, eidx, sl, E, C).float())
+                .abs().max())
+    if err != 0.0:
+        fail(f"moe_dispatch disagrees with its plain version: {err}")
+    keep = sl < C
+    kept = int(keep.sum())
+    rows_all = torch.where(keep, eidx.long() * C + sl.long(), E * C)
+    lib_buf = torch.zeros((E * C + 1, d), dtype=x.dtype, device=dev)
+
+    def lib_dispatch():
+        lib_buf.zero_().index_put_((rows_all,), x, accumulate=True)
+
+    t_b, by = bound(kept * d * 2 + T * 8 + E * C * d * 2, kept * d)
+    rows.append({"name": "moe_dispatch", "route": "cuda",
+                 "source": "src/repro_torch/csrc/moe_dispatch.cu",
+                 "replaces": "src/repro/kernels/moe_dispatch/kernel.py:53",
+                 "max_abs_err": err,
+                 "ms": time_ms(lambda: MK.moe_dispatch(x, eidx, sl, E, C)),
+                 "plain_ms": time_ms(lambda: MR.dispatch_ref(x, eidx, sl, E,
+                                                             C)),
+                 "bound_ms": t_b, "bound_by": by,
+                 "library_ms": time_ms(lib_dispatch),
+                 "shape": f"T={T}, d={d}, E={E}, C={C}, bf16, {kept} "
+                          f"routed rows"})
+    y = MK.moe_combine(buf, eidx, sl, w)
+    err = float((y.float() - MR.combine_ref(buf, eidx, sl, w).float())
+                .abs().max())
+    if err != 0.0:
+        fail(f"moe_combine disagrees with its plain version: {err}")
+    flat = buf.reshape(E * C, d)
+    rows_c = rows_all.clamp_max(E * C - 1)
+    w_b = w.to(buf.dtype)[:, None]
+    t_b, by = bound(kept * d * 2 + T * 12 + T * d * 2, T * d)
+    rows.append({"name": "moe_combine", "route": "cuda",
+                 "source": "src/repro_torch/csrc/moe_dispatch.cu",
+                 "replaces": "src/repro/kernels/moe_dispatch/kernel.py:98",
+                 "max_abs_err": err,
+                 "ms": time_ms(lambda: MK.moe_combine(buf, eidx, sl, w)),
+                 "plain_ms": time_ms(lambda: MR.combine_ref(buf, eidx, sl,
+                                                            w)),
+                 "bound_ms": t_b, "bound_by": by,
+                 "library_ms": time_ms(
+                     lambda: torch.index_select(flat, 0, rows_c) * w_b),
+                 "shape": f"T={T}, d={d}, E={E}, C={C}, bf16"})
+    # duplicate and dropped slots, float32: exact
+    xs = randn(2000, 256, dtype=torch.float32)
+    es = torch.randint(-1, 5, (2000,), generator=gen, device=dev,
+                       dtype=torch.int32)
+    ss = torch.randint(-1, 40, (2000,), generator=gen, device=dev,
+                       dtype=torch.int32)
+    if not torch.equal(MK.moe_dispatch(xs, es, ss, 4, 32),
+                       MR.dispatch_ref(xs, es, ss, 4, 32)):
+        fail("moe_dispatch with duplicate slots (float32) is not exact")
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: the main path
 # ---------------------------------------------------------------------------
@@ -550,7 +750,7 @@ def serving_closed(orders, lineitem, want, policy):
     launches = D.launch_counts()
     check_served(f"closed loop ({policy})", rep, names, want)
     if policy == "tensor":
-        idle = [k for k, v in launches.items() if v <= 0]
+        idle = [k for k in D.RELATIONAL_KERNELS if launches[k] <= 0]
         if idle:
             fail(f"closed loop (tensor): kernels {idle} were not launched")
     paths = collections.Counter(f"{names[q.workload_idx]}:{q.paths}"
@@ -619,23 +819,30 @@ def profile_queries(orders, lineitem) -> None:
             q.collect()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-        rows = []
-        for e in prof.key_averages():
-            if e.device_type != torch.autograd.DeviceType.CUDA:
-                continue  # host ops: their kernels are counted below them
-            dev_us = getattr(e, "self_device_time_total", None)
-            if dev_us is None:
-                dev_us = getattr(e, "self_cuda_time_total", 0.0)
-            if dev_us > 0:
-                rows.append((dev_us, e.count, e.key))
-        rows.sort(reverse=True)
-        busy = sum(r[0] for r in rows)
-        print(f"profile {name}: wall {wall_us:.0f} us, device busy "
-              f"{busy:.0f} us ({100 * busy / wall_us:.1f}%), idle "
-              f"{100 - 100 * busy / wall_us:.1f}%", flush=True)
-        for dev_us, count, key in rows[:12]:
-            print(f"  {dev_us:10.1f} us  x{count:<3d} {key[:90]}",
-                  flush=True)
+        print_profile(name, prof, wall_us)
+
+
+def print_profile(label: str, prof, wall_us: float, top: int = 12) -> None:
+    """The device's busy share of a traced window's wall time and its
+    kernels by device time."""
+    import torch
+
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue  # host ops: their kernels are counted below them
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0.0)
+        if dev_us > 0:
+            rows.append((dev_us, e.count, e.key))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    print(f"profile {label}: wall {wall_us:.0f} us, device busy "
+          f"{busy:.0f} us ({100 * busy / wall_us:.1f}%), idle "
+          f"{100 - 100 * busy / wall_us:.1f}%", flush=True)
+    for dev_us, count, key in rows[:top]:
+        print(f"  {dev_us:10.1f} us  x{count:<5d} {key[:90]}", flush=True)
 
 
 def small_agreement(seed: int) -> None:
@@ -661,11 +868,168 @@ def small_agreement(seed: int) -> None:
         fail("Q-a is not finite at small scale")
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: LM serving (Phi-3.5-MoE at full width) on the card
+# ---------------------------------------------------------------------------
+
+def lm_serving(seed: int, profile: bool = False):
+    """Prefill 2 x 4096 tokens, then serve 8 requests through the serve
+    entry point's loop (BatchScheduler + generate), counters from 0.  With
+    ``profile``, then trace one warm prefill and 12 decode steps at batch
+    4 (not counted in the numbers above)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import device as D
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import make_requests, serve
+    from repro_torch.models import init_model
+    from repro_torch.serving.engine import make_prefill_step
+
+    dev = torch.device("cuda")
+    full = get_config(LM_ARCH)
+    cfg = dataclasses.replace(full, num_layers=LM_LAYERS)
+    t0 = time.perf_counter()
+    params = init_model(torch.Generator(device=dev).manual_seed(seed), cfg,
+                        torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+
+    def count(tree):
+        return sum(count(v) if isinstance(v, dict) else v.numel()
+                   for v in tree.values())
+
+    n_params = count(params)
+    print(f"model: {cfg.name} at {cfg.num_layers} of {full.num_layers} "
+          f"layers, d_model "
+          f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, "
+          f"{cfg.num_experts} experts top-{cfg.experts_per_token}, "
+          f"{n_params} parameters in bf16 "
+          f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB), made in "
+          f"{init_s:.2f} s", flush=True)
+    rng = np.random.default_rng(seed)
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (PREFILL_BATCH, PREFILL_LEN))).to(dev)
+    step = make_prefill_step(cfg)
+    D.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    prefill_s = []
+    for _ in range(2):  # cold, then warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = step(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        prefill_s.append(time.perf_counter() - t0)
+        del cache
+    (host,) = D.to_host([logits])
+    if host.shape != (PREFILL_BATCH, cfg.vocab_size):
+        fail(f"prefill logits have shape {host.shape}")
+    if not np.isfinite(host).all():
+        fail("prefill logits are not finite")
+    peak = torch.cuda.max_memory_allocated()
+    n_tok = PREFILL_BATCH * PREFILL_LEN
+    print(f"prefill {PREFILL_BATCH} x {PREFILL_LEN}: cold {prefill_s[0]:.3f}"
+          f" s, warm {prefill_s[1]:.3f} s ({n_tok / prefill_s[1]:.0f} "
+          f"tokens/s), peak device memory {peak / 2**30:.2f} GiB", flush=True)
+    reqs = make_requests(cfg, SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW, seed)
+    step_s = []
+    rep = serve(params, cfg, reqs, SERVE_BATCH, device=dev,
+                step_seconds=step_s, log=None)
+    launches = D.launch_counts()
+    if rep["served"] != SERVE_REQUESTS or any(
+            len(r.output) != SERVE_NEW for r in reqs):
+        fail(f"serving: {rep['served']} of {SERVE_REQUESTS} requests served")
+    if any(not 0 <= t < cfg.vocab_size for r in reqs for t in r.output):
+        fail("serving produced a token outside the vocabulary")
+    for k in ("flash_attention", "moe_dispatch", "moe_combine",
+              "radix_sort_pass"):
+        if launches[k] <= 0:
+            fail(f"LM serving: kernel {k} was not launched ({launches})")
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as trace
+
+        from repro_torch.serving.engine import generate
+
+        acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        with trace(activities=acts) as prof:
+            t0 = time.perf_counter()
+            step(params, {"tokens": toks})
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        print_profile("LM prefill", prof, wall_us)
+        prompts = np.stack([r.prompt[:8] for r in reqs[:SERVE_BATCH]])
+        with trace(activities=acts) as prof:
+            t0 = time.perf_counter()
+            generate(params, cfg, prompts, 5)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        print_profile("LM decode (12 steps, batch 4)", prof, wall_us)
+    p50_ms = statistics.median(step_s) * 1e3
+    tok_s = rep["tokens"] / rep["seconds"]
+    print(f"serve {SERVE_REQUESTS} requests (prompt {SERVE_PROMPT}, "
+          f"{SERVE_NEW} new, batch {SERVE_BATCH}): {rep['tokens']} tokens in "
+          f"{rep['seconds']:.2f} s ({tok_s:.1f} tokens/s), decode step p50 "
+          f"{p50_ms:.2f} ms over {len(step_s)} steps, batches "
+          f"{rep['batches']}, launches {launches}", flush=True)
+    report = {"arch": cfg.name, "layers": cfg.num_layers,
+              "params": n_params, "init_s": init_s,
+              "prefill_cold_s": prefill_s[0], "prefill_warm_s": prefill_s[1],
+              "prefill_tokens_per_s": n_tok / prefill_s[1],
+              "prefill_peak_bytes": peak,
+              "serve_tokens": rep["tokens"], "serve_s": rep["seconds"],
+              "serve_tokens_per_s": tok_s, "decode_step_p50_ms": p50_ms,
+              "decode_steps": len(step_s), "launches": launches}
+    del params, logits
+    return report, launches
+
+
+def lm_agreement(seed: int) -> None:
+    """The smoke configs on the card and on the CPU, same float32 weights:
+    prefill logits within 2e-4 (the reference's prefill tolerance; float32
+    matmuls in full precision) and generate's tokens equal."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_model
+    from repro_torch.serving.engine import generate, make_prefill_step
+
+    def to(tree, dev):
+        return {k: (to(v, dev) if isinstance(v, dict) else v.to(dev))
+                for k, v in tree.items()}
+
+    for arch in SMOKE_ARCHS:
+        cfg = get_smoke_config(arch)
+        cpu = init_model(torch.Generator().manual_seed(seed), cfg,
+                         device="cpu")
+        card = to(cpu, torch.device("cuda"))
+        toks = np.random.default_rng(seed).integers(0, cfg.vocab_size,
+                                                    (2, 32))
+        out = {}
+        for where, p in (("cuda", card), ("cpu", cpu)):
+            logits, _ = make_prefill_step(cfg)(
+                p, {"tokens": torch.from_numpy(toks).to(where)})
+            out[where] = (logits.cpu(), generate(p, cfg, toks[:, :8], 8))
+        err = float((out["cuda"][0] - out["cpu"][0]).abs().max())
+        if not torch.isfinite(out["cuda"][0]).all() or not torch.allclose(
+                out["cuda"][0], out["cpu"][0], rtol=2e-4, atol=2e-4):
+            fail(f"{arch}: prefill logits on the card and the CPU differ "
+                 f"by {err}")
+        if not np.array_equal(out["cuda"][1], out["cpu"][1]):
+            fail(f"{arch}: generate's tokens differ between the card and "
+                 f"the CPU")
+        print(f"{arch} smoke: card/CPU prefill max abs diff {err:.3g}, "
+              f"generate tokens equal", flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one warm run of each query with "
+                    help="also trace one warm run of each query, one warm "
+                         "LM prefill and 12 decode steps with "
                          "torch.profiler and print where the time goes")
     args = ap.parse_args()
 
@@ -691,13 +1055,23 @@ def main() -> None:
     kind = torch.cuda.get_device_name(0)
     print(f"card: {card_line} | torch {torch.__version__} "
           f"cuda {torch.version.cuda} | {kind}", flush=True)
+    print(f"cuts: {LM_ARCH} at {LM_LAYERS} of 32 layers (full width), in "
+          f"bfloat16 where the reference defaults to float32, random "
+          f"weights from --seed {args.seed}; prompts of {PREFILL_BATCH} x "
+          f"{PREFILL_LEN} tokens (prefill) and {SERVE_REQUESTS} requests of "
+          f"{SERVE_PROMPT} + {SERVE_NEW} new tokens (serving)", flush=True)
     t0 = time.perf_counter()
-    for lib in ("segment_join", "multikey_sort"):
+    libs = ("segment_join", "multikey_sort", "flash_attention",
+            "moe_dispatch")
+    for lib in libs:  # the first call builds every source, in parallel
         D.kernel_library(lib)
-    print(f"kernel build (segment_join.cu, multikey_sort.cu): "
+    print(f"kernel build ({', '.join(f'{x}.cu' for x in libs)}): "
           f"{time.perf_counter() - t0:.2f} s (nvcc {D.build_seconds():.2f} s)",
           flush=True)
     dev = torch.device("cuda")
+    # float32 matmuls in full precision for the card/CPU comparisons
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
     orders, lineitem = tpch(1.0, args.seed)
@@ -712,7 +1086,8 @@ def main() -> None:
     # phase 2: kernels against their plain versions
     rows = kernel_phase(orders, lineitem, dev)
     rows.append(sort_kernel_phase(orders, dev))
-    for r in rows:
+    lm_rows = lm_kernel_phase(dev, args.seed)
+    for r in rows + lm_rows:
         print(f"kernel {r['name']}: {r['ms']:.4f} ms (plain "
               f"{r['plain_ms']:.4f}, library {r['library_ms']}, bound "
               f"{r['bound_ms']:.4f} by {r['bound_by']}) at {r['shape']}",
@@ -755,15 +1130,32 @@ def main() -> None:
     small_agreement(args.seed)
     print("small-scale card/CPU agreement: ok", flush=True)
 
+    # phase 6: LM serving, on a card emptied of the relational phases
+    del server
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    lm, lm_launches = lm_serving(args.seed, args.profile)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"LM serving phase: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # phase 7: the smoke configs on the card and the CPU
+    lm_agreement(args.seed)
+
     for r in rows:
         r["launches"] = launches[r["name"]]
+    for r in lm_rows:
+        r["launches"] = lm_launches[r["name"]]
+    rows += lm_rows
+    for r in rows:
         if r["launches"] <= 0:
             fail(f"kernel {r['name']} was not launched on the main path")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"queries": {k: report[k] for k in QUERIES},
                       "peak_allocated_bytes": report["peak_allocated_bytes"],
-                      "serving": serving}))
+                      "serving": serving, "lm": lm}))
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {

@@ -51,6 +51,7 @@ __all__ = [
     "dict_bucket",
     "encode_host",
     "pad_dictionary",
+    "take",
 ]
 
 #: dictionaries above this cardinality never pay for themselves against
@@ -63,6 +64,12 @@ DICT_MAX_CARD = 1 << 16
 _SAMPLE = 4096
 
 _CODE_DTYPES = ("int8", "int16", "int32")
+
+#: the signed dtype of each wide unsigned one's width: PyTorch on CUDA has
+#: no gather, ``where`` or comparison for uint16/32/64, so device code moves
+#: their bits through a view of this dtype
+SIGNED_VIEW = {torch.uint16: torch.int16, torch.uint32: torch.int32,
+               torch.uint64: torch.int64}
 
 _TORCH_DTYPES = {
     "bool": torch.bool, "uint8": torch.uint8, "int8": torch.int8,
@@ -218,10 +225,20 @@ def decode_device(codes, encoding: str, logical_dtype: str,
             wide = codes.to(torch.int64) + (r - (1 << 64) if r >= 1 << 63
                                             else r)
             return (wide.view(torch.uint64) if ldt == torch.uint64
-                    else wide.to(ldt))
+                    else wide.to(SIGNED_VIEW[ldt]).view(ldt))
         return codes.to(ldt) + int(ref)
     idx = codes.to(torch.int64).clamp(0, dict_values.shape[0] - 1)
-    return dict_values[idx]
+    return take(dict_values, idx)
+
+
+def take(col: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``col[idx]`` for every dtype: uint16/32/64 gather through a signed
+    view of the same width (bit for bit), since CUDA has no gather for
+    them."""
+    same = SIGNED_VIEW.get(col.dtype)
+    if same is None:
+        return col[idx]
+    return col.view(same)[idx].view(col.dtype)
 
 
 def pad_dictionary(dictionary: np.ndarray, bucket: int) -> np.ndarray:

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from ..device import to_host, upload
+from .codec_device import take
 from .relation import Relation
 
 __all__ = ["DeviceColumn", "DeviceRelation"]
@@ -68,7 +69,7 @@ class DeviceColumn:
         (group-by factorization) skip the decode entirely."""
         if self.gather is None:
             return self.base
-        return self.base[self.gather]
+        return take(self.base, self.gather)
 
     def take_lazy(self, idx: torch.Tensor) -> "DeviceColumn":
         if self.gather is None:

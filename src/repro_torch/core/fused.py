@@ -39,11 +39,11 @@ import numpy as np
 import torch
 
 from ..device import resolve_device, to_host
-from .codec_device import decode_device, dict_bucket
+from .codec_device import decode_device, dict_bucket, take
 from .metrics import OpMetrics, SpillAccount, Timer
 from .relation import Relation
 from .table_cache import get_device_layouts, key_stats
-from .tensor_engine import (_lex_perm, capacity_bucket,
+from .tensor_engine import (_lex_perm, _order_key, capacity_bucket,
                             radix_hash_probe_dispatch)
 
 __all__ = ["FusedSpec", "PredicateError", "device_mask", "match_fragment",
@@ -253,10 +253,10 @@ class _JoinView:
             # BUILD column under that name — the view must agree
             if (name.startswith("b_") and name[2:] in self._bcols
                     and name[2:] != self._key):
-                col = self._bcols[name[2:]][self._bidx]
+                col = take(self._bcols[name[2:]], self._bidx)
                 dec = self._bdec.get(name[2:])
             elif name in self._pcols:
-                col = self._pcols[name][self._pidx]
+                col = take(self._pcols[name], self._pidx)
                 dec = self._pdec.get(name)
             else:
                 raise KeyError(name)
@@ -568,7 +568,9 @@ def _build_program(spec: FusedSpec, key: str, capacity: int,
             # dtype maximum — their relative position among real max-key
             # rows is irrelevant because only valid rows survive
             # materialization.
-            keys0 = [view[k] for k in spec.sort_keys]
+            # unsigned keys map to signed ones of the same order first:
+            # CUDA has no ``where`` for uint16/32/64
+            keys0 = [_order_key(view[k]) for k in spec.sort_keys]
             msk = keys0[0]
             operands = ([torch.where(valid, msk, _fill_max(msk.dtype))]
                         + keys0[1:])
@@ -578,7 +580,7 @@ def _build_program(spec: FusedSpec, key: str, capacity: int,
             col_name, fn = spec.agg
             col = view[col_name]
             v = valid if perm is None else valid[perm]
-            c = col if perm is None else col[perm]
+            c = col if perm is None else take(col, perm)
             # integer columns reduce in int64 (exact, matches the host path
             # bit-for-bit — f64 would lose integer sums past 2^53)
             if fn == "sum":
@@ -603,7 +605,8 @@ def _build_program(spec: FusedSpec, key: str, capacity: int,
         # whole pipeline, and they happen once, on device.  A projected
         # root gathers (and later fetches) only its declared subset.
         out_names = view.names() if spec.project is None else spec.project
-        out_cols = {name: (view[name] if perm is None else view[name][perm])
+        out_cols = {name: (view[name] if perm is None
+                           else take(view[name], perm))
                     for name in out_names}
         out_valid = valid if perm is None else valid[perm]
         return {"total": total, "has_dup": has_dup, "cols": out_cols,

@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device, to_host, upload
+from .codec_device import SIGNED_VIEW
 from .device_relation import DeviceColumn, DeviceRelation
 from .metrics import OpMetrics, SpillAccount, Timer
 from .relation import Relation
@@ -388,14 +389,34 @@ def tensor_join_aggregate(
 # Sort: step-wise multi-key (stable LSD passes over key axes)
 # ---------------------------------------------------------------------------
 
+def _order_key(col: torch.Tensor) -> torch.Tensor:
+    """``col`` as a key of the same order that every device op takes.
+
+    PyTorch on CUDA has no gather, ``where`` or comparison for
+    uint16/32/64, so those map to a signed dtype of the same order first,
+    through a same-width view (``codec_device.SIGNED_VIEW``): uint16 to
+    int32 and uint32 to int64 (the bits widened without the sign), uint64
+    to int64 with the sign bit flipped.  bool becomes uint8 (torch sorts no
+    bool tensors); every other dtype is returned as it is."""
+    if col.dtype == torch.bool:
+        return col.to(torch.uint8)
+    same = SIGNED_VIEW.get(col.dtype)
+    if same is None:
+        return col
+    if col.dtype == torch.uint64:
+        return col.view(same) ^ torch.iinfo(torch.int64).min
+    wide = torch.int32 if col.dtype == torch.uint16 else torch.int64
+    return col.view(same).to(wide) & ((1 << (8 * col.element_size())) - 1)
+
+
 def _lex_perm(key_cols, n: int, device) -> torch.Tensor:
     """Stable lexicographic permutation over ``key_cols`` (most significant
     first): stable LSD passes, least-significant key first, so stability
-    makes the composition lexicographic."""
+    makes the composition lexicographic.  Unsigned keys are mapped by
+    :func:`_order_key` before any gather."""
     perm = torch.arange(n, device=device)
     for col in reversed(key_cols):
-        if col.dtype == torch.bool:
-            col = col.to(torch.uint8)  # torch sorts no bool tensors
+        col = _order_key(col)
         perm = perm[torch.sort(col[perm], stable=True).indices]
     return perm
 

@@ -35,9 +35,9 @@ import numpy as np
 import torch
 
 __all__ = ["resolve_device", "synchronize", "to_host", "upload", "LAUNCHES",
-           "count_launch", "launch_counts", "reset_launch_counts",
-           "kernel_library",
-           "build_seconds", "NVCC_FLAGS"]
+           "RELATIONAL_KERNELS", "count_launch", "launch_counts",
+           "reset_launch_counts", "kernel_library", "build_seconds",
+           "NVCC_FLAGS"]
 
 DeviceLike = Union[str, torch.device, None]
 
@@ -54,7 +54,13 @@ LAUNCHES: Dict[str, int] = {
     "join_table_build": 0,
     "join_table_probe": 0,
     "radix_sort_pass": 0,
+    "flash_attention": 0,
+    "moe_dispatch": 0,
+    "moe_combine": 0,
 }
+#: the relational engine's kernels; the LM path's are the other three
+RELATIONAL_KERNELS = ("segment_sum", "radix_rank", "join_table_build",
+                      "join_table_probe", "radix_sort_pass")
 _COUNT_LOCK = threading.Lock()
 
 
@@ -193,6 +199,7 @@ def build_seconds() -> float:
 _NP_DTYPES = {
     torch.bool: "bool", torch.uint8: "uint8", torch.int8: "int8",
     torch.int16: "int16", torch.int32: "int32", torch.int64: "int64",
+    torch.uint16: "uint16", torch.uint32: "uint32", torch.uint64: "uint64",
     torch.float16: "float16", torch.float32: "float32",
     torch.float64: "float64",
 }
@@ -206,8 +213,11 @@ def to_host(tensors) -> list:
     device (each piece padded to 8 bytes), copied once into pinned host
     memory, and the stream is synchronised once; the returned arrays are
     views into that buffer.  On the CPU the arrays share the tensors'
-    memory."""
+    memory.  numpy has no bfloat16: a bfloat16 tensor is cast to float32
+    on its device first (exactly), and comes back as float32."""
     tensors = [t.detach() for t in tensors]
+    tensors = [t.float() if t.dtype == torch.bfloat16 else t
+               for t in tensors]
     if not tensors:
         return []
     dev = tensors[0].device

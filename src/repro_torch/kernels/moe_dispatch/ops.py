@@ -1,0 +1,75 @@
+"""MoE dispatch and combine over torch tensors.
+
+The contracts are those of ``src/repro/kernels/moe_dispatch/ops.py``:
+``dispatch(x, eidx, slot, E, C)``, ``combine(buf, eidx, slot, w)`` and the
+layer body :func:`moe_dispatch` (``moe_dispatch_pallas`` there).  Each op
+picks its implementation by the device of the tensors it is given: a CUDA
+tensor launches the hand-written kernels of :mod:`.kernel` (or raises), a
+CPU tensor takes the plain versions of :mod:`.ref`.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+import torch.nn.functional as F
+
+from . import kernel as _k
+from . import ref as _ref
+
+__all__ = ["dispatch", "combine", "moe_dispatch", "expert_slots"]
+
+
+def dispatch(x: torch.Tensor, eidx: torch.Tensor, slot: torch.Tensor,
+             num_experts: int, capacity: int) -> torch.Tensor:
+    """x ``[T, d]``; eidx/slot ``[T]`` (one routing slot) → buf
+    ``[E, C, d]``."""
+    eidx = eidx.to(torch.int32).contiguous()
+    slot = slot.to(torch.int32).contiguous()
+    if x.device.type == "cuda":
+        return _k.moe_dispatch(x.contiguous(), eidx, slot, num_experts,
+                               capacity)
+    return _ref.dispatch_ref(x, eidx, slot, num_experts, capacity)
+
+
+def combine(buf: torch.Tensor, eidx: torch.Tensor, slot: torch.Tensor,
+            w: torch.Tensor) -> torch.Tensor:
+    """buf ``[E, C, d]``; eidx/slot/w ``[T]`` → y ``[T, d]``."""
+    eidx = eidx.to(torch.int32).contiguous()
+    slot = slot.to(torch.int32).contiguous()
+    w = w.to(torch.float32).contiguous()
+    if buf.device.type == "cuda":
+        return _k.moe_combine(buf.contiguous(), eidx, slot, w)
+    return _ref.combine_ref(buf, eidx, slot, w)
+
+
+def expert_slots(topk_idx: torch.Tensor, num_experts: int) -> torch.Tensor:
+    """Each assignment's rank within its expert, over ALL k assignments
+    in (token, k) order (the shared cumsum of the einsum and sort paths):
+    ``[T, k]`` int32."""
+    T, k = topk_idx.shape
+    onehot_e = F.one_hot(topk_idx.reshape(-1).long(),
+                         num_experts).to(torch.int32)
+    pos = torch.cumsum(onehot_e, dim=0, dtype=torch.int32) - onehot_e
+    return (pos * onehot_e).sum(dim=-1, dtype=torch.int32).reshape(T, k)
+
+
+def moe_dispatch(params, x_flat: torch.Tensor, topk_idx: torch.Tensor,
+                 topk_w: torch.Tensor, cfg, capacity: int,
+                 expert_ffn: Callable) -> torch.Tensor:
+    """The MoE layer body on the kernel path: k dispatch passes, the expert
+    FFN, k combine passes.  Same capacity and drop semantics as the model's
+    einsum path."""
+    E, k = cfg.num_experts, cfg.experts_per_token
+    slot = expert_slots(topk_idx, E)
+    buf = None
+    for j in range(k):
+        b = dispatch(x_flat, topk_idx[:, j], slot[:, j], E, capacity)
+        buf = b if buf is None else buf + b
+    out_buf = expert_ffn(params, buf, cfg)
+    y = None
+    for j in range(k):
+        c = combine(out_buf, topk_idx[:, j], slot[:, j],
+                    topk_w[:, j].to(torch.float32))
+        y = c if y is None else y + c
+    return y

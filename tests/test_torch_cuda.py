@@ -114,7 +114,7 @@ def test_session_on_card_matches_cpu_and_launches_kernels(dev):
         assert warm.total_host_syncs == 1 and warm.total_h2d_bytes == 0
         answers[name] = res
     counts = D.launch_counts()
-    assert all(v > 0 for v in counts.values()), counts
+    assert all(counts[k] > 0 for k in D.RELATIONAL_KERNELS), counts
     a, b = answers["cuda"], answers["cpu"]
     assert a["agg"].scalar == b["agg"].scalar
     assert a["rel"].relation.equals(b["rel"].relation)
@@ -246,3 +246,147 @@ def test_query_server_on_card_matches_cpu(dev):
         g_scalar, g_rel = answers["cuda"][idx]
         assert g_scalar == scalar
         assert (rel is None) or rel.equals(g_rel)
+
+
+def test_fused_sort_on_unsigned_keys_on_card_matches_cpu(dev):
+    """uint32 and uint64 sort keys in the fused fragment: the card gives
+    the CPU's rows (CUDA has no gather or ``where`` for these dtypes, so
+    the keys are mapped to signed ones of the same order first)."""
+    from repro_torch.core import Session, col
+
+    rng = np.random.default_rng(2)
+    n_b, n_p = 500, 2000
+    u64 = rng.integers(0, 1 << 62, 40, dtype=np.uint64) * np.uint64(4)
+    u64[::2] |= np.uint64(1 << 63)
+    build = {"k": np.arange(n_b, dtype=np.int64),
+             "u32": rng.integers(0, 1 << 32, n_b,
+                                 dtype=np.uint64).astype(np.uint32),
+             "u64": rng.choice(u64, n_b)}
+    probe = {"k": rng.integers(0, n_b + 20, n_p).astype(np.int64),
+             "w": rng.integers(-50, 50, n_p).astype(np.int64)}
+    out = {}
+    for name in ("cuda", "cpu"):
+        sess = Session(work_mem=1 << 20, policy="tensor", device=name)
+        sess.register("p", probe)
+        sess.register("b", build)
+        res = (sess.table("p").join("b", on="k").filter(col("w") > 0)
+               .sort("b_u64", "b_u32", "w").collect())
+        assert [m.op for m in res.metrics] == ["fused_pipeline"], name
+        out[name] = res.relation
+    assert out["cuda"].equals(out["cpu"])
+
+
+# ---------------------------------------------------------------------------
+# the LM path: flash attention, MoE dispatch/combine, prefill
+# ---------------------------------------------------------------------------
+
+def _attn_inputs(B, Sq, Sk, H, KH, D, Dv, dtype, dev, seed=0):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(
+        device=dev, dtype=dtype)
+        for s in ((B, Sq, H, D), (B, Sk, KH, D), (B, Sk, KH, Dv))]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("shape,kw", [
+    ((2, 200, 200, 8, 2, 64, 64), {}),                      # ragged tiles
+    ((1, 96, 96, 4, 4, 128, 96), {"window": 40}),           # D != Dv
+    ((1, 64, 160, 8, 1, 256, 256), {"q_offset": 96,
+                                     "cap": 50.0}),          # Gemma-2 dims
+    ((2, 130, 130, 4, 2, 32, 32), {"causal": False, "window": 17}),
+])
+def test_flash_attention_matches_plain_version(dev, dtype, tol, shape, kw):
+    from repro_torch import device as D
+    from repro_torch.kernels.flash_attention import kernel, ref
+
+    B, Sq, Sk, H, KH, Dh, Dv = shape
+    q, k, v = _attn_inputs(B, Sq, Sk, H, KH, Dh, Dv, dtype, dev)
+    kw = dict({"causal": True}, **kw)
+    D.reset_launch_counts()
+    got = kernel.flash_attention_fwd(q, k, v, scale=Dh ** -0.5, **kw)
+    torch.cuda.synchronize()
+    assert D.launch_counts()["flash_attention"] == 1
+    want = ref.flash_attention_ref(q, k, v, scale=Dh ** -0.5, **kw)
+    assert got.dtype == dtype and got.shape == (B, Sq, H, Dv)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_flash_attention_reads_strided_views(dev):
+    """Views go into the kernel through their strides, without a copy: q
+    as a slice of a fused projection, k and v as transposes of ``[B, KH,
+    S, D]``, give the same output as their contiguous copies."""
+    from repro_torch.kernels.flash_attention import ops
+
+    B, S, H, KH, Dh = 2, 150, 8, 2, 64
+    rng = np.random.default_rng(3)
+    fused = torch.from_numpy(rng.normal(size=(B, S, H + 1, Dh)).astype(
+        np.float32)).to(dev)
+    q = fused[:, :, 1:]
+    k, v = (torch.from_numpy(rng.normal(size=(B, KH, S, Dh)).astype(
+        np.float32)).to(dev).transpose(1, 2) for _ in range(2))
+    assert not (q.is_contiguous() or k.is_contiguous() or v.is_contiguous())
+    got = ops.flash_attention(q, k, v, causal=True, window=70)
+    want = ops.flash_attention(q.contiguous(), k.contiguous(),
+                               v.contiguous(), causal=True, window=70)
+    torch.testing.assert_close(got, want, rtol=0.0, atol=0.0)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 0.0),
+                                       (torch.bfloat16, 0.0)])
+def test_moe_dispatch_and_combine_match_plain_versions(dev, dtype, tol):
+    """Duplicate, negative and overflowing slots included: both kernels
+    sum in float32 in token order, as the plain versions do, so they agree
+    exactly."""
+    from repro_torch.kernels.moe_dispatch import kernel, ref
+
+    rng = np.random.default_rng(9)
+    T, d, E, C = 3000, 520, 8, 300
+    x = torch.from_numpy(rng.normal(size=(T, d)).astype(np.float32)).to(
+        device=dev, dtype=dtype)
+    e = _t(rng.integers(-1, E + 1, T).astype(np.int32), dev)
+    s = _t(rng.integers(-2, C + C // 4, T).astype(np.int32), dev)
+    w = _t(rng.random(T).astype(np.float32), dev)
+    buf = kernel.moe_dispatch(x, e, s, E, C)
+    torch.testing.assert_close(buf, ref.dispatch_ref(x, e, s, E, C),
+                               rtol=tol, atol=tol)
+    y = kernel.moe_combine(buf, e, s, w)
+    torch.testing.assert_close(y, ref.combine_ref(buf, e, s, w), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "yi-9b",
+                                  "gemma2-9b"])
+def test_smoke_prefill_and_generate_on_card_match_cpu(dev, arch):
+    """The same weights on the card and on the CPU: prefill logits within
+    2e-4 (float32; matmuls in full float32), generate's tokens equal, and
+    the LM kernels launched."""
+    from repro_torch import device as D
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_model
+    from repro_torch.serving.engine import generate, make_prefill_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config(arch)
+    params_cpu = init_model(torch.Generator().manual_seed(0), cfg,
+                            device="cpu")
+    params = _tree_to(params_cpu, dev)
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 24))
+    out = {}
+    D.reset_launch_counts()
+    for where, p in (("cuda", params), ("cpu", params_cpu)):
+        batch = {"tokens": torch.from_numpy(toks).to(where)}
+        logits, _ = make_prefill_step(cfg)(p, batch)
+        out[where] = (logits.cpu(), generate(p, cfg, toks[:, :8], 6))
+    counts = D.launch_counts()
+    assert counts["flash_attention"] > 0
+    if cfg.uses_moe:
+        assert counts["moe_dispatch"] > 0 and counts["moe_combine"] > 0
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=2e-4,
+                               atol=2e-4)
+    np.testing.assert_array_equal(out["cuda"][1], out["cpu"][1])
+
+
+def _tree_to(tree, dev):
+    return {k: (_tree_to(v, dev) if isinstance(v, dict) else v.to(dev))
+            for k, v in tree.items()}

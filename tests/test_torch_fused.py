@@ -233,3 +233,44 @@ def test_fused_fetch_is_one_batched_copy(monkeypatch):
                          device="cpu")
     assert m.host_syncs == 1 and len(calls) == 1
     assert calls[0] == 2 + 1 + 3  # total, has_dup, valid + three columns
+
+
+def _unsigned_tables(seed=0):
+    """A build side with uint32 and uint64 payloads (uint64 values on both
+    sides of 2**63, repeated so that the second key breaks ties)."""
+    rng = np.random.default_rng(seed)
+    n_b, n_p = 500, 2000
+    u64 = rng.integers(0, 1 << 62, 40, dtype=np.uint64) * np.uint64(4)
+    u64[::2] |= np.uint64(1 << 63)
+    build = {"k": np.arange(n_b, dtype=np.int64),
+             "u32": rng.integers(0, 1 << 32, n_b,
+                                 dtype=np.uint64).astype(np.uint32),
+             "u64": rng.choice(u64, n_b)}
+    probe = {"k": rng.integers(0, n_b + 20, n_p).astype(np.int64),
+             "w": rng.integers(-50, 50, n_p).astype(np.int64)}
+    return build, probe
+
+
+def _unsigned_query(sess, M):
+    return (sess.table("p").join("b", on="k").filter(M.col("w") > 0)
+            .sort("b_u64", "b_u32", "w"))
+
+
+def test_fused_sort_on_unsigned_keys_matches_reference():
+    """The fused fragment sorts uint32 and uint64 keys (mapped to signed
+    keys of the same order) into the reference's rows."""
+    build, probe = _unsigned_tables()
+    out = {}
+    for M, kw in ((R, {}), (T, {"device": "cpu"})):
+        sess = M.Session(work_mem=1 << 20, policy="tensor", **kw)
+        sess.register("p", probe)
+        sess.register("b", build)
+        out[M] = _unsigned_query(sess, M).collect()
+    got, want = out[T], out[R]
+    assert [m.op for m in got.metrics] == ["fused_pipeline"]
+    assert set(got.relation.names) == set(want.relation.names)
+    for k in want.relation.names:
+        np.testing.assert_array_equal(got.relation[k], want.relation[k])
+        assert got.relation[k].dtype == want.relation[k].dtype
+    u64 = got.relation["b_u64"]
+    assert (u64[:-1] <= u64[1:]).all() and u64[-1] >= np.uint64(1 << 63)

@@ -41,12 +41,17 @@ def test_every_module_imports_with_jax_blocked():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 25  # core + kernels + device modules
+    # core + kernels + device + configs + models + serving + launch
+    assert int(out.stdout.strip()) >= 55
 
 
 @pytest.mark.parametrize("module", [
     "repro_torch.core.server", "repro_torch.core.slo",
-    "repro_torch.kernels.multikey_sort.ops"])
+    "repro_torch.kernels.multikey_sort.ops",
+    "repro_torch.kernels.flash_attention.ops",
+    "repro_torch.kernels.moe_dispatch.ops", "repro_torch.models",
+    "repro_torch.models.interop", "repro_torch.serving.engine",
+    "repro_torch.launch.serve", "repro_torch.configs"])
 def test_serving_and_sort_modules_stand_alone(module):
     """The serving layer and the sort kernel's package load with JAX
     blocked and pull in nothing of JAX or the reference."""
@@ -85,6 +90,24 @@ def test_session_without_cuda_raises(monkeypatch):
     rel = Relation({"k": np.arange(4, dtype=np.int64)})
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tensor_join(rel, rel, "k")
+
+
+def test_lm_entry_points_without_cuda_raise(monkeypatch):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import serve
+    from repro_torch.models import init_cache, init_model
+    from repro_torch.models.interop import params_from_numpy
+    from repro_torch.serving.engine import BatchScheduler
+
+    _no_cuda(monkeypatch)
+    cfg = get_smoke_config("phi3.5-moe-42b-a6.6b")
+    gen = torch.Generator()
+    for call in (lambda: init_model(gen, cfg), lambda: init_cache(cfg, 1, 4),
+                 lambda: BatchScheduler(4),
+                 lambda: params_from_numpy({"w": np.zeros(2)}),
+                 lambda: serve.main(["--smoke"])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
 
 
 def test_session_on_cpu_runs_the_tensor_path():

@@ -1,0 +1,165 @@
+"""The port's LM (``repro_torch.models``) against the reference's on the
+CPU, for the Phi-3.5-MoE, Yi-9B and Gemma-2 smoke configs: the same
+weights (the reference's, handed across as numpy through
+``params_from_numpy``) and the same tokens give the same ``forward``
+logits and MoE aux loss, ``prefill`` logits and cache, and ``decode_step``
+logits step by step.  Tolerance 2e-4, as the reference's prefill/decode
+test holds it."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import repro.models as JM  # noqa: E402
+import repro_torch.models as TM  # noqa: E402
+from repro.configs import get_smoke_config  # noqa: E402
+from repro_torch.configs import get_config as t_get_config  # noqa: E402
+from repro_torch.configs import get_smoke_config as t_smoke  # noqa: E402
+from repro_torch.models.interop import params_from_numpy  # noqa: E402
+
+ARCHS = ["phi3.5-moe-42b-a6.6b", "yi-9b", "gemma2-9b"]
+TOL = 2e-4
+
+
+def _setup(arch, B=2, S=16, seed=0):
+    cfg, tcfg = get_smoke_config(arch), t_smoke(arch)
+    assert tcfg == type(tcfg)(**vars(cfg))  # the copied registry agrees
+    params = JM.init_model(jax.random.PRNGKey(seed), cfg)
+    tp = params_from_numpy(jax.device_get(params), device="cpu")
+    toks = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)
+    return cfg, tcfg, params, tp, toks
+
+
+def _close(got, want, tol=TOL):
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_forward_matches_reference(arch):
+    cfg, tcfg, params, tp, toks = _setup(arch)
+    lj, aux_j, _ = JM.forward(params, cfg, {"tokens": jnp.asarray(toks)})
+    lt, aux_t, _ = TM.forward(tp, tcfg, {"tokens": torch.from_numpy(toks)})
+    assert lt.shape == (2, 16, cfg.vocab_size)
+    _close(lt, lj)
+    np.testing.assert_allclose(float(aux_t), float(aux_j), rtol=1e-6)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_prefill_matches_reference(arch):
+    cfg, tcfg, params, tp, toks = _setup(arch, seed=1)
+    lj, cj = JM.prefill(params, cfg, {"tokens": jnp.asarray(toks)})
+    lt, ct = TM.prefill(tp, tcfg, {"tokens": torch.from_numpy(toks)})
+    _close(lt, lj)
+    assert ct["pos"] == int(cj["pos"]) == 16
+    for slot, entry in cj["blocks"].items():
+        for name, arr in entry.items():
+            assert tuple(ct["blocks"][slot][name].shape) == arr.shape
+            _close(ct["blocks"][slot][name], arr)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_decode_steps_match_reference(arch):
+    """Step-by-step decode from an empty cache, against the reference and
+    against the port's own full-sequence forward."""
+    cfg, tcfg, params, tp, toks = _setup(arch, S=8, seed=2)
+    step = jax.jit(lambda p, c, b: JM.decode_step(p, cfg, c, b))
+    cj = JM.init_cache(cfg, 2, 8)
+    ct = TM.init_cache(tcfg, 2, 8, device="cpu")
+    outs = []
+    for t in range(8):
+        lj, cj = step(params, cj, {"tokens": jnp.asarray(toks[:, t:t + 1])})
+        lt, ct = TM.decode_step(tp, tcfg, ct,
+                                {"tokens": torch.from_numpy(toks[:, t:t + 1])})
+        _close(lt, lj)
+        outs.append(lt)
+    assert ct["pos"] == 8
+    full, _, _ = TM.forward(tp, tcfg, {"tokens": torch.from_numpy(toks)})
+    torch.testing.assert_close(torch.stack(outs, 1), full, rtol=5e-2,
+                               atol=5e-4)
+    with pytest.raises(IndexError, match="past the cache"):
+        TM.decode_step(tp, tcfg, ct, {"tokens": torch.from_numpy(toks[:, :1])})
+
+
+def test_init_model_layout_matches_reference():
+    """The port's own random init has the reference's keys, shapes and
+    dtypes, stacked periods included, and is reproducible from its
+    generator's seed."""
+    cfg, tcfg = get_smoke_config(ARCHS[0]), t_smoke(ARCHS[0])
+    ref = jax.eval_shape(lambda k: JM.init_model(k, cfg, jnp.bfloat16),
+                         jax.random.PRNGKey(0))
+
+    def make():
+        gen = torch.Generator().manual_seed(3)
+        return TM.init_model(gen, tcfg, torch.bfloat16, device="cpu")
+
+    got, again = make(), make()
+    flat_ref = jax.tree_util.tree_flatten_with_path(ref)[0]
+    assert len(flat_ref) > 10
+    for path, leaf in flat_ref:
+        node, node2 = got, again
+        for p in path:
+            node, node2 = node[p.key], node2[p.key]
+        assert tuple(node.shape) == leaf.shape, path
+        assert str(node.dtype).split(".")[-1] == str(leaf.dtype), path
+        assert torch.equal(node, node2)
+
+
+def test_unported_mixers_raise():
+    gen = torch.Generator().manual_seed(0)
+    for arch in ("deepseek-v2-lite-16b", "mamba2-370m"):
+        cfg = t_smoke(arch)
+        with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+            TM.init_model(gen, cfg, device="cpu")
+    cfg = t_get_config("phi3.5-moe-42b-a6.6b")
+    assert cfg.num_layers == 32 and cfg.d_model == 4096
+
+
+def test_params_from_numpy_keeps_bfloat16_and_recasts():
+    """bfloat16 leaves (ml_dtypes arrays from ``jax.device_get``) cross
+    bit for bit; ``dtype`` recasts floating leaves only."""
+    vals = np.array([1.5, -2.0, 3e38, -1e-3, 0.0], np.float32)
+    tree = jax.device_get({"a": {"w": jnp.asarray(vals, jnp.bfloat16)},
+                           "i": jnp.arange(3, dtype=jnp.int32)})
+    got = params_from_numpy(tree, device="cpu")
+    assert got["a"]["w"].dtype == torch.bfloat16
+    np.testing.assert_array_equal(got["a"]["w"].float().numpy(),
+                                  np.asarray(tree["a"]["w"], np.float32))
+    cast = params_from_numpy(tree, device="cpu", dtype=torch.float32)
+    assert cast["a"]["w"].dtype == torch.float32
+    assert cast["i"].dtype == torch.int32
+
+
+def test_common_pieces_and_loss_match_reference():
+    """M-RoPE, the plain GELU MLP and the cross-entropy loss, which the
+    three smoke configs do not reach, against the reference's."""
+    from repro.models import common as JC
+    from repro_torch.models import common as TC
+
+    rng = np.random.default_rng(6)
+    pos = rng.integers(0, 50, (3, 2, 7)).astype(np.int32)
+    sj, cj = JC.mrope_freqs(jnp.asarray(pos), 32, 1e4, (4, 6, 6))
+    st, ct = TC.mrope_freqs(torch.from_numpy(pos), 32, 1e4, (4, 6, 6))
+    _close(st, sj, 1e-5)
+    _close(ct, cj, 1e-5)
+    x = rng.normal(size=(2, 7, 3, 32)).astype(np.float32)
+    _close(TC.apply_rope(torch.from_numpy(x), st, ct),
+           JC.apply_rope(jnp.asarray(x), sj, cj), 1e-5)
+    mp = JC.init_mlp(jax.random.PRNGKey(1), 16, 24, "gelu")
+    h = rng.normal(size=(5, 16)).astype(np.float32)
+    _close(TM.common.mlp(params_from_numpy(jax.device_get(mp), "cpu"),
+                         torch.from_numpy(h), "gelu"),
+           JC.mlp(mp, jnp.asarray(h), "gelu"), 1e-5)
+    logits = rng.normal(size=(2, 5, 11)).astype(np.float32)
+    labels = rng.integers(-1, 11, (2, 5)).astype(np.int32)
+    np.testing.assert_allclose(
+        float(TM.cross_entropy_loss(torch.from_numpy(logits),
+                                    torch.from_numpy(labels))),
+        float(JM.cross_entropy_loss(jnp.asarray(logits),
+                                    jnp.asarray(labels))), rtol=1e-6)
+    assert TM.model_input_dtypes(t_smoke("qwen2-vl-7b")) == \
+        JM.model_input_dtypes(get_smoke_config("qwen2-vl-7b"))
