@@ -32,19 +32,21 @@ Phases (any mismatch or exception ends the run with a non-zero exit code):
 6. LM serving on the card, counters from 0: Phi-3.5-MoE
    (``phi3.5-moe-42b-a6.6b``) at full width and 24 of its 32 layers in
    bfloat16, random weights made on the card from ``--seed``; a prefill of
-   2 x 4096 tokens through ``make_prefill_step`` (the flash-attention
-   kernel, and the MoE dispatch/combine kernels on the einsum path), then
+   2 x 4096 tokens through ``make_prefill_step`` (the bf16 flash-attention
+   kernel on the tensor cores, and the MoE dispatch/combine kernels on the
+   einsum path), then
    8 requests (prompt 64, 32 new tokens) through ``launch.serve``'s loop
    (``BatchScheduler(4)``, whose admission sort launches the radix sort
    kernel, and ``generate``); logits must be finite and every request
    served;
 7. the Phi-3.5-MoE, Yi-9B and Gemma-2 smoke configs on the card and on
-   the CPU with the same float32 weights: prefill logits within 2e-4 and
-   ``generate``'s tokens equal.
+   the CPU with the same float32 weights, counters from 0: prefill logits
+   within 2e-4 and ``generate``'s tokens equal; the float32 attention
+   kernel must run.
 
-Phase 2 also holds the three LM kernels against their plain versions at
-phase 6's shapes; their ``launches`` come from phase 6, the relational
-kernels' from phase 3.
+Phase 2 also holds the four LM kernels against their plain versions at
+phase 6's shapes; their ``launches`` come from phase 6 (the float32
+attention kernel's from phase 7), the relational kernels' from phase 3.
 
 The script imports nothing of JAX.  The line before the last is the card as
 ``nvidia-smi`` names it; the last line is one JSON object with the device.
@@ -506,10 +508,12 @@ def attn_err(got, want, what: str) -> float:
 def lm_kernel_phase(dev, seed: int):
     """The LM path's kernels at the shapes of phase 6's prefill: flash
     attention over 2 x 4096 tokens of Phi-3.5-MoE's heads (32 query, 8 kv,
-    head dim 128, bf16, causal), and one routing slot's dispatch and
-    combine over its 8192 tokens (d 4096, 16 experts, capacity 1280), with
-    slots from a real top-2 routing.  Tolerances: attention in float32
-    within 2e-5 (the reference tests'); in bf16 each output within
+    head dim 128, causal) in bf16 (the tensor-core kernel, phase 6's) and
+    in float32 (the SIMT kernel, phase 7's), and one routing slot's
+    dispatch and combine over its 8192 tokens (d 4096, 16 experts,
+    capacity 1280), with slots from a real top-2 routing.  Tolerances:
+    attention in float32 within 2e-5 (the reference tests'); in bf16 each
+    output within
     ``ATTN_BF16_ATOL + ATTN_BF16_RTOL * |plain|``, two bf16 steps of its
     own size, since at S 4096 a typical output is about 0.04 and the
     reference tests' 3e-2 (set at S <= 256) would pass a wrong kernel;
@@ -532,45 +536,54 @@ def lm_kernel_phase(dev, seed: int):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
     rows = []
-    # flash attention at the prefill's shape
+    # flash attention at the prefill's shape: bf16 on the tensor-core
+    # kernel (the prefill's), then the same inputs in float32 on the SIMT
+    # kernel; each against its plain version and SDPA in its dtype
     B, S, H, KH, Dh = PREFILL_BATCH, PREFILL_LEN, 32, 8, 128
     q, k, v = randn(B, S, H, Dh), randn(B, S, KH, Dh), randn(B, S, KH, Dh)
     scale = Dh ** -0.5
-
-    def flash():
-        return FK.flash_attention_fwd(q, k, v, causal=True, scale=scale)
-
-    got = flash()
-    want = FR.flash_attention_ref(q, k, v, causal=True, scale=scale)
-    err = attn_err(got, want, "causal, D=128, S=4096, bf16")
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-
-    def library():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                              scale=scale, enable_gqa=True)
-
-    lib_err = float((library().transpose(1, 2).float()
-                     - want.float()).abs().max())
     pairs = B * H * S * (S + 1) // 2
-    t_b, by = bound(2 * (q.numel() + k.numel() + v.numel() + got.numel()),
-                    2 * (Dh + Dh) * pairs, H100_BF16_OPS_PER_S)
-    rows.append({"name": "flash_attention", "route": "cuda",
-                 "source": "src/repro_torch/csrc/flash_attention.cu",
-                 "replaces": "src/repro/kernels/flash_attention/kernel.py:70",
-                 "max_abs_err": err, "ms": time_ms(flash),
-                 "plain_ms": time_ms(lambda: FR.flash_attention_ref(
-                     q, k, v, causal=True, scale=scale)),
-                 "bound_ms": t_b, "bound_by": by,
-                 "library_ms": time_ms(library),
-                 "shape": f"B={B}, S={S}, H={H}, KH={KH}, D={Dh}, bf16, "
-                          f"causal (SDPA differs from the plain version "
-                          f"by {lib_err:.3g})"})
-    # check only: the same inputs in float32
-    q, k, v = (t.float() for t in (q, k, v))
-    attn_err(flash(), FR.flash_attention_ref(q, k, v, causal=True,
-                                             scale=scale),
-             "causal, D=128, S=4096, float32")
-    del q, k, v, qt, kt, vt, got, want
+    routes = (
+        ("flash_attention", torch.bfloat16, H100_BF16_OPS_PER_S,
+         "src/repro_torch/csrc/flash_attention_sm90.cu"),
+        ("flash_attention_f32", torch.float32, H100_SCALAR_OPS_PER_S,
+         "src/repro_torch/csrc/flash_attention.cu"),
+    )
+    for name, dtype, peak, source in routes:
+        q, k, v = (t.to(dtype) for t in (q, k, v))
+        if FK.select_kernel(q, k, v) != name:
+            fail(f"{dtype} attention does not select the {name} kernel")
+
+        def flash():
+            return FK.flash_attention_fwd(q, k, v, causal=True, scale=scale)
+
+        got = flash()
+        want = FR.flash_attention_ref(q, k, v, causal=True, scale=scale)
+        err = attn_err(got, want, f"causal, D=128, S=4096, {dtype}")
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+
+        def library():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, scale=scale, enable_gqa=True)
+
+        lib_err = float((library().transpose(1, 2).float()
+                         - want.float()).abs().max())
+        t_b, by = bound(q.element_size() * (q.numel() + k.numel() + v.numel()
+                                            + got.numel()),
+                        2 * (Dh + Dh) * pairs, peak)
+        rows.append({"name": name, "route": "cuda", "source": source,
+                     "replaces":
+                         "src/repro/kernels/flash_attention/kernel.py:70",
+                     "max_abs_err": err, "ms": time_ms(flash),
+                     "plain_ms": time_ms(lambda: FR.flash_attention_ref(
+                         q, k, v, causal=True, scale=scale)),
+                     "bound_ms": t_b, "bound_by": by,
+                     "library_ms": time_ms(library),
+                     "shape": f"B={B}, S={S}, H={H}, KH={KH}, D={Dh}, "
+                              f"{dtype}, causal (SDPA differs from the "
+                              f"plain version by {lib_err:.3g})"})
+        del qt, kt, vt, got, want
+    del q, k, v
     # check only: Gemma-2's heads (16 query, 8 kv, head dim 256) with a
     # window and the tanh soft-cap, cut to 1024 tokens (window 512 so
     # that it masks), in bf16 and float32
@@ -930,9 +943,14 @@ def lm_serving(seed: int, profile: bool = False):
         fail("prefill logits are not finite")
     peak = torch.cuda.max_memory_allocated()
     n_tok = PREFILL_BATCH * PREFILL_LEN
+    prefill_launches = D.launch_counts()
+    if prefill_launches["flash_attention"] <= 0:
+        fail(f"the prefill did not launch the bf16 flash_attention kernel "
+             f"({prefill_launches})")
     print(f"prefill {PREFILL_BATCH} x {PREFILL_LEN}: cold {prefill_s[0]:.3f}"
           f" s, warm {prefill_s[1]:.3f} s ({n_tok / prefill_s[1]:.0f} "
-          f"tokens/s), peak device memory {peak / 2**30:.2f} GiB", flush=True)
+          f"tokens/s), peak device memory {peak / 2**30:.2f} GiB, launches "
+          f"{prefill_launches}", flush=True)
     reqs = make_requests(cfg, SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW, seed)
     step_s = []
     rep = serve(params, cfg, reqs, SERVE_BATCH, device=dev,
@@ -980,18 +998,21 @@ def lm_serving(seed: int, profile: bool = False):
               "prefill_peak_bytes": peak,
               "serve_tokens": rep["tokens"], "serve_s": rep["seconds"],
               "serve_tokens_per_s": tok_s, "decode_step_p50_ms": p50_ms,
-              "decode_steps": len(step_s), "launches": launches}
+              "decode_steps": len(step_s),
+              "prefill_launches": prefill_launches, "launches": launches}
     del params, logits
     return report, launches
 
 
-def lm_agreement(seed: int) -> None:
+def lm_agreement(seed: int) -> dict:
     """The smoke configs on the card and on the CPU, same float32 weights:
     prefill logits within 2e-4 (the reference's prefill tolerance; float32
-    matmuls in full precision) and generate's tokens equal."""
+    matmuls in full precision) and generate's tokens equal.  Returns the
+    launch counts of the run, from 0: the float32 attention kernel's."""
     import numpy as np
     import torch
 
+    from repro_torch import device as D
     from repro_torch.configs import get_smoke_config
     from repro_torch.models import init_model
     from repro_torch.serving.engine import generate, make_prefill_step
@@ -1000,6 +1021,7 @@ def lm_agreement(seed: int) -> None:
         return {k: (to(v, dev) if isinstance(v, dict) else v.to(dev))
                 for k, v in tree.items()}
 
+    D.reset_launch_counts()
     for arch in SMOKE_ARCHS:
         cfg = get_smoke_config(arch)
         cpu = init_model(torch.Generator().manual_seed(seed), cfg,
@@ -1022,6 +1044,11 @@ def lm_agreement(seed: int) -> None:
                  f"the CPU")
         print(f"{arch} smoke: card/CPU prefill max abs diff {err:.3g}, "
               f"generate tokens equal", flush=True)
+    launches = D.launch_counts()
+    if launches["flash_attention_f32"] <= 0:
+        fail(f"the float32 smoke configs did not launch flash_attention_f32 "
+             f"({launches})")
+    return launches
 
 
 def main() -> None:
@@ -1062,7 +1089,7 @@ def main() -> None:
           f"{SERVE_PROMPT} + {SERVE_NEW} new tokens (serving)", flush=True)
     t0 = time.perf_counter()
     libs = ("segment_join", "multikey_sort", "flash_attention",
-            "moe_dispatch")
+            "flash_attention_sm90", "moe_dispatch")
     for lib in libs:  # the first call builds every source, in parallel
         D.kernel_library(lib)
     print(f"kernel build ({', '.join(f'{x}.cu' for x in libs)}): "
@@ -1140,13 +1167,14 @@ def main() -> None:
     torch.cuda.empty_cache()
     print(f"LM serving phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # phase 7: the smoke configs on the card and the CPU
-    lm_agreement(args.seed)
+    # phase 7: the smoke configs on the card and the CPU (float32)
+    f32_launches = lm_agreement(args.seed)
 
     for r in rows:
         r["launches"] = launches[r["name"]]
     for r in lm_rows:
-        r["launches"] = lm_launches[r["name"]]
+        r["launches"] = (f32_launches if r["name"] == "flash_attention_f32"
+                         else lm_launches)[r["name"]]
     rows += lm_rows
     for r in rows:
         if r["launches"] <= 0:

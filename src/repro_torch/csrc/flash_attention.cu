@@ -1,5 +1,8 @@
-// Hopper (sm_90a) kernel for the LM path's attention: online-softmax
-// ("flash") attention over the model layout [B, S, H, D].
+// Hopper (sm_90a) kernel for the LM path's attention in float32:
+// online-softmax ("flash") attention over the model layout [B, S, H, D].
+// bfloat16 inputs (the prefill's) go to the tensor-core kernel of
+// csrc/flash_attention_sm90.cu; this one keeps float32 at the reference's
+// float32 tolerance, which TF32 tensor cores would not hold.
 //
 // Replaces src/repro/kernels/flash_attention/kernel.py::flash_attention_pallas
 // together with the epilogue of flash_attention/ops.py (acc / max(l, 1e-30),
@@ -12,18 +15,16 @@
 // one store of the output.
 //
 // One block of 256 threads per (q tile of 32 rows, head, batch):
-//   * the Q tile is read once into shared memory (as float32); GQA reads the
-//     K/V of kv head h / G, with no repeat in memory;
-//   * K/V tiles of 64 keys stream through shared memory (float32);
+//   * the Q tile is read once into shared memory; GQA reads the K/V of kv
+//     head h / G, with no repeat in memory;
+//   * K/V tiles of 64 keys stream through shared memory;
 //   * 8 threads own one query row: each computes 8 of the tile's 64 scores
 //     (dot over D in float32), applies the scale, then the tanh soft-cap,
 //     then the mask (masked scores are -1e30, keys past Sk are -inf so that
 //     they never count); the row's max and sum are shuffles among the 8;
 //   * running (m, l) per row and the row's Dv accumulators (Dv / 8 per
-//     thread) stay in registers, in float32; P is rounded to V's dtype
-//     before the PV product, and l sums the unrounded P, as the reference
-//     does;
-//   * the output row is acc / max(l, 1e-30), stored in q's dtype.
+//     thread) stay in registers;
+//   * the output row is acc / max(l, 1e-30).
 // Tiles that are masked for every row of the block are skipped (causal: past
 // the block's last query; window: before its first key) unless some row of
 // the block has no visible key at all: such a row's answer (the mean of V
@@ -33,18 +34,15 @@
 // alpha = exp(-1e30 - m) = 0.
 //
 // Bound: operations -- 4 * B * H * Sq * Sk' * D flops (Sk' the visible keys)
-// against the tensor cores' bf16 rate; bytes are Q, K, V and O once.  This
-// first version runs the products on the CUDA cores in float32 FMAs out of
-// shared memory, so it sits far from that bound; wgmma tiles fed by TMA are
-// the later step.  Shared memory: (32 (D+1) + 64 (D+1) + 64 Dv + 32 * 65) *
-// 4 bytes, 172 KB at D = Dv = 256, set above 48 KB through
-// cudaFuncAttributeMaxDynamicSharedMemorySize.
+// against the CUDA cores' float32 rate (67 TFLOP/s); bytes are Q, K, V and O
+// once.  The products are float32 FMAs out of shared memory.  Shared memory:
+// (32 (D+1) + 64 (D+1) + 64 Dv + 32 * 65) * 4 bytes, 172 KB at D = Dv = 256,
+// set above 48 KB through cudaFuncAttributeMaxDynamicSharedMemorySize.
 //
 // The exported function has a plain C interface (raw device pointers,
 // element strides, the caller's stream), launches on that stream, never
 // synchronises and allocates nothing; it returns cudaGetLastError().
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -60,22 +58,11 @@ constexpr int kMaxD = 256;
 constexpr float kMasked = -1e30f;
 static_assert(kLanes == 8, "the row shuffles below assume 8 lanes per row");
 
-template <typename T> __device__ __forceinline__ float to_f(T x);
-template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
 struct Params {
-  const void* q;
-  const void* k;
-  const void* v;
-  void* out;
+  const float* q;
+  const float* k;
+  const float* v;
+  float* out;
   int B, Sq, Sk, H, KH, D, Dv;
   long long qb, qs, qh;   // element strides of q (last dim contiguous)
   long long kb, ks, kh;
@@ -97,7 +84,7 @@ __device__ __forceinline__ bool row_sees_a_key(long long qpos, const Params& p) 
 
 // kDvLane: the most accumulators a thread holds (Dv / 8 rounded up): 16 for
 // Dv <= 128, 32 for Dv <= 256.
-template <typename T, int kDvLane>
+template <int kDvLane>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(Params p) {
   extern __shared__ float smem[];
@@ -116,14 +103,14 @@ flash_attention_kernel(Params p) {
   const int b = blockIdx.z;
   const int kvh = h / (p.H / p.KH);
 
-  const T* qp = static_cast<const T*>(p.q) + b * p.qb + h * p.qh;
-  const T* kp = static_cast<const T*>(p.k) + b * p.kb + kvh * p.kh;
-  const T* vp = static_cast<const T*>(p.v) + b * p.vb + kvh * p.vh;
+  const float* qp = p.q + b * p.qb + h * p.qh;
+  const float* kp = p.k + b * p.kb + kvh * p.kh;
+  const float* vp = p.v + b * p.vb + kvh * p.vh;
 
   for (int i = tid; i < kBQ * D; i += kThreads) {
     const int row = i / D, d = i % D;
     const int qi = q0 + row;
-    Qs[row * ldq + d] = qi < p.Sq ? to_f(qp[qi * p.qs + d]) : 0.f;
+    Qs[row * ldq + d] = qi < p.Sq ? qp[qi * p.qs + d] : 0.f;
   }
 
   // the tiles that hold a key visible to some row of the block
@@ -151,12 +138,12 @@ flash_attention_kernel(Params p) {
     for (int i = tid; i < kBK * D; i += kThreads) {
       const int row = i / D, d = i % D;
       const int kj = k0 + row;
-      Ks[row * ldq + d] = kj < p.Sk ? to_f(kp[kj * p.ks + d]) : 0.f;
+      Ks[row * ldq + d] = kj < p.Sk ? kp[kj * p.ks + d] : 0.f;
     }
     for (int i = tid; i < kBK * Dv; i += kThreads) {
       const int row = i / Dv, d = i % Dv;
       const int kj = k0 + row;
-      Vs[row * Dv + d] = kj < p.Sk ? to_f(vp[kj * p.vs + d]) : 0.f;
+      Vs[row * Dv + d] = kj < p.Sk ? vp[kj * p.vs + d] : 0.f;
     }
     __syncthreads();
 
@@ -195,7 +182,7 @@ flash_attention_kernel(Params p) {
     for (int j = 0; j < kCols; ++j) {
       const float pj = expf(s[j] - m_new);
       row_sum += pj;
-      prow[lane + kLanes * j] = to_f(from_f<T>(pj));  // P in V's dtype
+      prow[lane + kLanes * j] = pj;
     }
 #pragma unroll
     for (int off = 1; off < kLanes; off <<= 1)
@@ -220,29 +207,29 @@ flash_attention_kernel(Params p) {
 
   const int qi = q0 + r;
   if (qi < p.Sq) {
-    T* op = static_cast<T*>(p.out) + b * p.ob + qi * p.os + h * p.oh;
+    float* op = p.out + b * p.ob + qi * p.os + h * p.oh;
     const float den = fmaxf(l, 1e-30f);
 #pragma unroll
     for (int i = 0; i < kDvLane; ++i) {
       const int d = lane + kLanes * i;
-      if (d < Dv) op[d] = from_f<T>(acc[i] / den);
+      if (d < Dv) op[d] = acc[i] / den;
     }
   }
 }
 
-template <typename T, int kDvLane>
+template <int kDvLane>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   const size_t smem = sizeof(float) *
       (static_cast<size_t>(kBQ) * (p.D + 1) + static_cast<size_t>(kBK) * (p.D + 1) +
        static_cast<size_t>(kBK) * p.Dv + static_cast<size_t>(kBQ) * (kBK + 1));
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_kernel<T, kDvLane>,
+        flash_attention_kernel<kDvLane>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
   dim3 grid((p.Sq + kBQ - 1) / kBQ, p.H, p.B);
-  flash_attention_kernel<T, kDvLane><<<grid, kThreads, smem, stream>>>(p);
+  flash_attention_kernel<kDvLane><<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -250,10 +237,10 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and out share it).  Strides are
-// in elements; the last dimension of every tensor is contiguous.
-int repro_flash_attention(const void* q, const void* k, const void* v,
-                          void* out, int dtype, int B, int Sq, int Sk, int H,
+// float32 q, k, v and out.  Strides are in elements; the last dimension of
+// every tensor is contiguous.
+int repro_flash_attention(const float* q, const float* k, const float* v,
+                          float* out, int B, int Sq, int Sk, int H,
                           int KH, int D, int Dv, long long qb, long long qs,
                           long long qh, long long kb, long long ks,
                           long long kh, long long vb, long long vs,
@@ -266,16 +253,7 @@ int repro_flash_attention(const void* q, const void* k, const void* v,
   Params p{q, k, v, out, B, Sq, Sk, H, KH, D, Dv, qb, qs, qh, kb, ks, kh,
            vb, vs, vh, ob, os, oh, causal, window, cap, scale, q_offset};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0) {
-    err = Dv <= 128 ? launch<float, 16>(p, st) : launch<float, 32>(p, st);
-  } else if (dtype == 1) {
-    err = Dv <= 128 ? launch<__nv_bfloat16, 16>(p, st)
-                    : launch<__nv_bfloat16, 32>(p, st);
-  } else {
-    err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+  return static_cast<int>(Dv <= 128 ? launch<16>(p, st) : launch<32>(p, st));
 }
 
 const char* repro_flash_error_string(int code) {

@@ -54,11 +54,12 @@ LAUNCHES: Dict[str, int] = {
     "join_table_build": 0,
     "join_table_probe": 0,
     "radix_sort_pass": 0,
-    "flash_attention": 0,
+    "flash_attention": 0,        # bfloat16, tensor cores
+    "flash_attention_f32": 0,    # float32, CUDA cores
     "moe_dispatch": 0,
     "moe_combine": 0,
 }
-#: the relational engine's kernels; the LM path's are the other three
+#: the relational engine's kernels; the LM path's are the other four
 RELATIONAL_KERNELS = ("segment_sum", "radix_rank", "join_table_build",
                       "join_table_probe", "radix_sort_pass")
 _COUNT_LOCK = threading.Lock()

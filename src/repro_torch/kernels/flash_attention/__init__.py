@@ -1,4 +1,6 @@
-"""Flash attention: an online-softmax kernel written for Hopper
-(``csrc/flash_attention.cu``), its plain PyTorch version, and the
-reference's model-layout contract.  ``ops`` picks the CUDA kernel
-(``kernel``) or the plain version (``ref``) by the tensor's device."""
+"""Flash attention: two online-softmax kernels written for Hopper (bf16 on
+the tensor cores, ``csrc/flash_attention_sm90.cu``; float32 on the CUDA
+cores, ``csrc/flash_attention.cu``), their plain PyTorch version, and the
+reference's model-layout contract.  ``ops`` picks a CUDA kernel
+(``kernel``, by dtype) or the plain version (``ref``) by the tensor's
+device."""

@@ -1,71 +1,108 @@
-"""ctypes binding for the Hopper kernel in ``csrc/flash_attention.cu``.
+"""ctypes bindings for the Hopper flash-attention kernels, and the choice
+between them.
 
 :func:`flash_attention_fwd` replaces
 ``src/repro/kernels/flash_attention/kernel.py::flash_attention_pallas`` with
 the epilogue of its ``ops.py`` (the division by ``max(l, 1e-30)`` and the
 cast to q's dtype).  It takes the model layout ``[B, S, H, D]`` through
-strides, so no transpose is made.  The wrapper checks the device, dtype,
-shape and strides of its inputs and raises on anything the kernel does not
-take, allocates the output with ``torch.empty``, launches on
-``torch.cuda.current_stream()``, raises if the launch reports a CUDA error,
-and adds one to its launch counter.  It only takes CUDA tensors; the plain
-version in :mod:`.ref` serves CPU tensors, chosen in :mod:`.ops`.
+strides, so no transpose is made.  Two kernels serve it, chosen by dtype in
+:func:`select_kernel`:
+
+* bfloat16 (the prefill's dtype): ``csrc/flash_attention_sm90.cu``, both
+  products on the tensor cores (``wgmma``), K/V fed by TMA; D and Dv
+  multiples of 16 up to 256, pointers and strides 16-byte aligned (TMA's
+  rule).  Launch counter ``flash_attention``.
+* float32: ``csrc/flash_attention.cu``, float32 FMAs on the CUDA cores,
+  which hold the reference's float32 tolerance; D and Dv up to 256.  Launch
+  counter ``flash_attention_f32``.
+
+What neither kernel takes raises ``ValueError``; nothing falls back to the
+other kernel or to the plain version.  The wrapper allocates the output with
+``torch.empty``, launches on ``torch.cuda.current_stream()``, raises if the
+launch reports an error, and adds one to the chosen kernel's counter.  It
+only takes CUDA tensors; the plain version in :mod:`.ref` serves CPU
+tensors, chosen in :mod:`.ops`.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from ...device import count_launch, kernel_library
 
-__all__ = ["flash_attention_fwd", "MAX_HEAD_DIM"]
+__all__ = ["flash_attention_fwd", "select_kernel", "tma_strides",
+           "MAX_HEAD_DIM", "TENSOR_CORE_KERNEL", "F32_KERNEL"]
 
 MAX_HEAD_DIM = 256
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: launch-counter names of the two kernels
+TENSOR_CORE_KERNEL = "flash_attention"
+F32_KERNEL = "flash_attention_f32"
+_DTYPES = (torch.float32, torch.bfloat16)
+_I32 = 2 ** 31
 
 
-def _lib() -> ctypes.CDLL:
-    lib = kernel_library("flash_attention")
-    if not getattr(lib, "_repro_bound", False):
+#: launch-counter name -> (source stem, C entry point, its error strings)
+_ENTRIES = {
+    TENSOR_CORE_KERNEL: ("flash_attention_sm90", "repro_flash_attention_sm90",
+                         "repro_flash_sm90_error_string"),
+    F32_KERNEL: ("flash_attention", "repro_flash_attention",
+                 "repro_flash_error_string"),
+}
+
+
+def _entry(name: str):
+    """The bound C entry point and error-string function of kernel
+    ``name``; both take the same arguments."""
+    stem, fn_name, err_name = _ENTRIES[name]
+    lib = kernel_library(stem)
+    fn, errors = getattr(lib, fn_name), getattr(lib, err_name)
+    if fn.argtypes is None:
         p, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                        ctypes.c_float)
-        lib.repro_flash_attention.argtypes = (
-            [p, p, p, p] + [i] * 8 + [ll] * 12 + [i, i, f, f, ll, p])
-        lib.repro_flash_attention.restype = ctypes.c_int
-        lib.repro_flash_error_string.argtypes = [i]
-        lib.repro_flash_error_string.restype = ctypes.c_char_p
-        lib._repro_bound = True
-    return lib
+        fn.argtypes = [p] * 4 + [i] * 7 + [ll] * 12 + [i, i, f, f, ll, p]
+        fn.restype = i
+        errors.argtypes = [i]
+        errors.restype = ctypes.c_char_p
+    return fn, errors
 
 
-def _check(t: torch.Tensor, what: str, dtype=None) -> None:
-    if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
-        raise ValueError(f"{what}: expected a CUDA tensor")
-    if t.dim() != 4:
-        raise ValueError(f"{what}: expected [B, S, heads, dim], got "
-                         f"{tuple(t.shape)}")
+def tma_strides(t: torch.Tensor) -> Tuple[int, int, int]:
+    """The (batch, row, head) element strides of a ``[B, S, heads, dim]``
+    tensor as the kernels take them: a dimension of size 1 gets the packed
+    stride of the dimension inside it, since PyTorch leaves such a stride
+    arbitrary and a TMA descriptor checks every stride's alignment."""
+    B, S, Hd, Dd = t.shape
+    sb, ss, sh = t.stride()[:3]
+    sh = sh if Hd > 1 else Dd
+    ss = ss if S > 1 else Hd * sh
+    sb = sb if B > 1 else S * ss
+    return sb, ss, sh
+
+
+def _check_layout(t, what: str, dtype=None) -> None:
+    if not isinstance(t, torch.Tensor) or t.dim() != 4:
+        raise ValueError(f"{what}: expected a [B, S, heads, dim] tensor, got "
+                         f"{getattr(t, 'shape', type(t))}")
     if t.dtype not in _DTYPES:
-        raise TypeError(f"{what}: expected float32 or bfloat16, got "
-                        f"{t.dtype}")
+        raise ValueError(f"{what}: no kernel takes {t.dtype} (float32 or "
+                         f"bfloat16)")
     if dtype is not None and t.dtype != dtype:
-        raise TypeError(f"{what}: dtype {t.dtype} differs from q's {dtype}")
+        raise ValueError(f"{what}: dtype {t.dtype} differs from q's {dtype}")
     if t.stride(-1) != 1:
         raise ValueError(f"{what}: the last dimension must be contiguous")
 
 
-def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, causal: bool = True, window: Optional[int] = None,
-                        cap: Optional[float] = None, scale: float,
-                        q_offset: int = 0) -> torch.Tensor:
-    """q ``[B, Sq, H, D]``; k ``[B, Sk, KH, D]``; v ``[B, Sk, KH, Dv]``
-    (one dtype, float32 or bfloat16) → ``[B, Sq, H, Dv]`` in q's dtype.
-    Query row i sits at position ``q_offset + i``; kv head ``h // (H //
-    KH)`` serves query head h."""
-    _check(q, "q")
-    _check(k, "k", q.dtype)
-    _check(v, "v", q.dtype)
+def select_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The launch-counter name of the kernel that serves these inputs:
+    :data:`TENSOR_CORE_KERNEL` for bfloat16, :data:`F32_KERNEL` for
+    float32.  Pure: reads dtypes, shapes, strides and data pointers only,
+    so it runs on CPU tensors too.  Raises ``ValueError`` on what no kernel
+    takes."""
+    _check_layout(q, "q")
+    _check_layout(k, "k", q.dtype)
+    _check_layout(v, "v", q.dtype)
     B, Sq, H, D = q.shape
     Sk, KH, Dv = k.shape[1], k.shape[2], v.shape[3]
     if k.shape[0] != B or v.shape[0] != B or tuple(v.shape[1:3]) != (Sk, KH):
@@ -77,31 +114,60 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"{H} query heads do not group over {KH} kv heads")
     if D > MAX_HEAD_DIM or Dv > MAX_HEAD_DIM:
         raise ValueError(f"head dims {D}/{Dv} exceed {MAX_HEAD_DIM}")
-    if max(B, Sq, Sk, H) >= 2**31:
+    if max(B, Sq, Sk, H) >= _I32:
         raise ValueError("a dimension does not fit the kernel's int32")
     if H >= 65536 or B >= 65536:
         raise ValueError(f"grid of {H} heads x {B} batches is too large")
+    if q.dtype == torch.float32:
+        return F32_KERNEL
+    if D % 16 or Dv % 16 or D < 16 or Dv < 16:
+        raise ValueError(f"the bfloat16 kernel takes head dims that are "
+                         f"multiples of 16, got D {D}, Dv {Dv}")
+    if Sk < 1:
+        raise ValueError("the bfloat16 kernel needs at least one key")
+    for t, what in ((q, "q"), (k, "k"), (v, "v")):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: TMA needs a 16-byte-aligned base, got "
+                             f"address {t.data_ptr():#x}")
+        if any(s * t.element_size() % 16 for s in tma_strides(t)):
+            raise ValueError(f"{what}: TMA needs strides of whole 16 bytes, "
+                             f"got {t.stride()} in {t.dtype}")
+    return TENSOR_CORE_KERNEL
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: Optional[int] = None,
+                        cap: Optional[float] = None, scale: float,
+                        q_offset: int = 0) -> torch.Tensor:
+    """q ``[B, Sq, H, D]``; k ``[B, Sk, KH, D]``; v ``[B, Sk, KH, Dv]``
+    (one dtype, float32 or bfloat16) → ``[B, Sq, H, Dv]`` in q's dtype.
+    Query row i sits at position ``q_offset + i``; kv head ``h // (H //
+    KH)`` serves query head h."""
+    for t, what in ((q, "q"), (k, "k"), (v, "v")):
+        if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
+            raise ValueError(f"{what}: expected a CUDA tensor")
+    if q.device != k.device or q.device != v.device:
+        raise ValueError("q, k and v must be on one device")
+    name = select_kernel(q, k, v)
     if window is not None and window < 1:
         raise ValueError(f"window must be positive, got {window}")
     if q_offset < 0:
         raise ValueError(f"q_offset must be >= 0, got {q_offset}")
-    if q.device != k.device or q.device != v.device:
-        raise ValueError("q, k and v must be on one device")
+    B, Sq, H, D = q.shape
+    Sk, KH, Dv = k.shape[1], k.shape[2], v.shape[3]
     out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    lib = _lib()
+    opts = (int(bool(causal)), int(window or 0), float(cap or 0.0),
+            float(scale), int(q_offset))
+    fn, errors = _entry(name)
     with torch.cuda.device(q.device):
-        rc = lib.repro_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _DTYPES[q.dtype], B, Sq, Sk, H, KH, D, Dv,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            *out.stride()[:3], int(bool(causal)), int(window or 0),
-            float(cap or 0.0), float(scale), int(q_offset),
-            torch.cuda.current_stream(q.device).cuda_stream)
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                B, Sq, Sk, H, KH, D, Dv, *tma_strides(q), *tma_strides(k),
+                *tma_strides(v), *out.stride()[:3], *opts,
+                torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
-        msg = lib.repro_flash_error_string(rc).decode()
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
-                           f"error {rc} ({msg})")
-    count_launch("flash_attention")
+        raise RuntimeError(f"{name} kernel launch failed: error {rc} "
+                           f"({errors(rc).decode()})")
+    count_launch(name)
     return out

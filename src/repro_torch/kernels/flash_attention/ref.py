@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the flash-attention kernel.
 
-:func:`flash_attention_ref` repeats the arithmetic of the CUDA kernel in
-``csrc/flash_attention.cu`` and of the reference's ``chunked_attention``:
+:func:`flash_attention_ref` repeats the arithmetic of the CUDA kernels in
+``csrc/flash_attention_sm90.cu`` (bf16) and ``csrc/flash_attention.cu``
+(float32) and of the reference's ``chunked_attention``:
 an online softmax over KV tiles (query tiles only bound the memory), in
 float32, with the scale before the tanh soft-cap, masked scores at -1e30,
 P rounded to V's dtype before the PV product and l summed from the

@@ -12,8 +12,9 @@ MLA (``attention.py:231-314`` of the reference) is not ported yet
 
 Decode writes the new token's K/V into the caller's cache tensors in place
 (the reference returns updated copies through ``dynamic_update_slice``),
-which saves a copy of the cache per step; a write past the cache's end
-raises where the reference would clamp it onto the last position.
+which saves a copy of the cache per step.  Like ``dynamic_update_slice``, a
+write at a position past the cache's end lands on its last position, and the
+step then attends to every position.
 """
 from __future__ import annotations
 
@@ -122,15 +123,14 @@ def gqa_forward(params, x, cfg, sin, cos, *, window=None, is_causal=True,
 def gqa_decode(params, x, cfg, sin, cos, k_cache, v_cache, cur_pos: int, *,
                window=None):
     """x ``[B, 1, d]``; caches ``[B, S, KH, D]`` holding the history.
-    Writes the new K/V at ``cur_pos`` in place and returns
-    ``(out, (k_cache, v_cache))``."""
+    Writes the new K/V in place at ``cur_pos`` clamped into ``[0, S - 1]``
+    (as the reference's ``dynamic_update_slice`` does), attends with the
+    mask of ``cur_pos`` itself, and returns ``(out, (k_cache, v_cache))``."""
     B = x.shape[0]
-    if not 0 <= cur_pos < k_cache.shape[1]:
-        raise IndexError(f"decode position {cur_pos} is past the cache's "
-                         f"{k_cache.shape[1]} positions")
+    at = min(max(cur_pos, 0), k_cache.shape[1] - 1)
     q, k, v = _gqa_qkv(params, x, cfg, sin, cos)
-    k_cache[:, cur_pos:cur_pos + 1] = k.to(k_cache.dtype)
-    v_cache[:, cur_pos:cur_pos + 1] = v.to(v_cache.dtype)
+    k_cache[:, at:at + 1] = k.to(k_cache.dtype)
+    v_cache[:, at:at + 1] = v.to(v_cache.dtype)
     out = decode_attention(q, k_cache, v_cache, cur_pos, window=window,
                            cap=cfg.attn_logit_softcap)
     out = out.reshape(B, 1, cfg.num_heads * cfg.head_dim) @ params["wo"]

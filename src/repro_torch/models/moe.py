@@ -103,7 +103,10 @@ def _route(params, x_flat, cfg):
     logits = x_flat.float() @ params["router"]              # [T, E]
     probs = torch.softmax(logits, dim=-1)
     k = cfg.experts_per_token
-    topk_p, topk_idx = torch.topk(probs, k, dim=-1)
+    # the k largest, the lower expert first on a tie, as jax.lax.top_k picks
+    # them (torch.topk may pick another expert of a tie)
+    topk_p, topk_idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    topk_p, topk_idx = topk_p[:, :k], topk_idx[:, :k]
     if cfg.norm_topk:
         topk_w = topk_p / torch.clamp_min(topk_p.sum(-1, keepdim=True), 1e-9)
     else:

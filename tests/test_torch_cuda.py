@@ -297,6 +297,8 @@ def _attn_inputs(B, Sq, Sk, H, KH, D, Dv, dtype, dev, seed=0):
     ((2, 130, 130, 4, 2, 32, 32), {"causal": False, "window": 17}),
 ])
 def test_flash_attention_matches_plain_version(dev, dtype, tol, shape, kw):
+    """bfloat16 launches the tensor-core kernel, float32 the SIMT kernel;
+    each once, the other never."""
     from repro_torch import device as D
     from repro_torch.kernels.flash_attention import kernel, ref
 
@@ -306,10 +308,74 @@ def test_flash_attention_matches_plain_version(dev, dtype, tol, shape, kw):
     D.reset_launch_counts()
     got = kernel.flash_attention_fwd(q, k, v, scale=Dh ** -0.5, **kw)
     torch.cuda.synchronize()
-    assert D.launch_counts()["flash_attention"] == 1
+    counts = D.launch_counts()
+    mine, other = (("flash_attention", "flash_attention_f32")
+                   if dtype == torch.bfloat16
+                   else ("flash_attention_f32", "flash_attention"))
+    assert (counts[mine], counts[other]) == (1, 0), counts
     want = ref.flash_attention_ref(q, k, v, scale=Dh ** -0.5, **kw)
     assert got.dtype == dtype and got.shape == (B, Sq, H, Dv)
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+# bf16 on the tensor-core kernel: each output within 2e-3 + 2^-6 * |plain|,
+# two bf16 steps of its own size (as chip_smoke.py holds the main shape)
+@pytest.mark.parametrize("shape,kw", [
+    ((1, 200, 333, 16, 2, 128, 128), {"q_offset": 133}),      # Sq != Sk
+    ((1, 300, 300, 4, 2, 80, 96), {}),                       # padded D, Dv
+    ((1, 1024, 1024, 16, 8, 256, 256), {"window": 512,
+                                        "cap": 50.0}),       # Gemma-2
+    ((1, 64, 100, 2, 1, 64, 64), {"causal": False, "window": 10,
+                                  "q_offset": 150}),         # no key: mean V
+    ((2, 256, 256, 32, 4, 128, 128), {}),                    # H/KH = 8
+    ((2, 77, 211, 8, 2, 64, 64), {"q_offset": 134}),         # ragged tiles
+    ((1, 130, 257, 4, 2, 192, 192), {"window": 100}),        # 3 D tiles
+    ((1, 70, 70, 2, 1, 16, 16), {}),                         # D = 16
+    ((1, 100, 100, 4, 4, 256, 64), {"causal": False}),       # D 256, Dv 64
+])
+def test_flash_attention_bf16_tensor_core_cases(dev, shape, kw):
+    from repro_torch import device as D
+    from repro_torch.kernels.flash_attention import kernel, ref
+
+    B, Sq, Sk, H, KH, Dh, Dv = shape
+    q, k, v = _attn_inputs(B, Sq, Sk, H, KH, Dh, Dv, torch.bfloat16, dev,
+                           seed=Sq)
+    kw = dict({"causal": True, "scale": Dh ** -0.5}, **kw)
+    D.reset_launch_counts()
+    got = kernel.flash_attention_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert D.launch_counts()["flash_attention"] == 1
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    assert got.shape == (B, Sq, H, Dv)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2.0 ** -6,
+                               atol=2e-3)
+
+
+def test_flash_attention_bf16_reads_strided_views(dev):
+    """q sliced from a fused ``[B, S, H+1, D]`` projection and k/v as
+    transposes of ``[B, KH, S, D]`` go through TMA by their strides: the
+    output equals the contiguous copies' bit for bit, and the plain
+    version's within the bf16 tolerance."""
+    from repro_torch.kernels.flash_attention import kernel, ref
+
+    B, S, H, KH, Dh = 2, 150, 8, 2, 64
+    rng = np.random.default_rng(4)
+    fused = torch.from_numpy(rng.normal(size=(B, S, H + 1, Dh)).astype(
+        np.float32)).to(device=dev, dtype=torch.bfloat16)
+    q = fused[:, :, 1:]
+    k, v = (torch.from_numpy(rng.normal(size=(B, KH, S, Dh)).astype(
+        np.float32)).to(device=dev, dtype=torch.bfloat16).transpose(1, 2)
+        for _ in range(2))
+    assert not (q.is_contiguous() or k.is_contiguous() or v.is_contiguous())
+    assert kernel.select_kernel(q, k, v) == "flash_attention"
+    kw = dict(causal=True, window=70, scale=Dh ** -0.5)
+    got = kernel.flash_attention_fwd(q, k, v, **kw)
+    same = kernel.flash_attention_fwd(q.contiguous(), k.contiguous(),
+                                      v.contiguous(), **kw)
+    torch.testing.assert_close(got, same, rtol=0.0, atol=0.0)
+    torch.testing.assert_close(got.float(),
+                               ref.flash_attention_ref(q, k, v, **kw).float(),
+                               rtol=2.0 ** -6, atol=2e-3)
 
 
 def test_flash_attention_reads_strided_views(dev):
@@ -379,7 +445,7 @@ def test_smoke_prefill_and_generate_on_card_match_cpu(dev, arch):
         logits, _ = make_prefill_step(cfg)(p, batch)
         out[where] = (logits.cpu(), generate(p, cfg, toks[:, :8], 6))
     counts = D.launch_counts()
-    assert counts["flash_attention"] > 0
+    assert counts["flash_attention_f32"] > 0  # float32: the SIMT kernel
     if cfg.uses_moe:
         assert counts["moe_dispatch"] > 0 and counts["moe_combine"] > 0
     torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=2e-4,

@@ -106,3 +106,88 @@ def test_plain_version_tiles_do_not_change_the_answer():
                               vt.transpose(1, 2), causal=True, window=30)
     torch.testing.assert_close(got, dense.transpose(1, 2), rtol=2e-5,
                                atol=2e-5)
+
+
+def _bf(*shape, dtype=torch.bfloat16):
+    return torch.zeros(shape, dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype,D,Dv,kernel_name", [
+    (torch.bfloat16, 128, 128, "flash_attention"),       # the prefill's
+    (torch.bfloat16, 80, 96, "flash_attention"),         # HuBERT's D
+    (torch.bfloat16, 256, 256, "flash_attention"),       # Gemma-2's D
+    (torch.bfloat16, 16, 32, "flash_attention"),
+    (torch.float32, 128, 128, "flash_attention_f32"),
+    (torch.float32, 24, 40, "flash_attention_f32"),      # any D up to 256
+])
+def test_select_kernel_by_dtype_and_shape(dtype, D, Dv, kernel_name):
+    """The choice needs no card: bfloat16 goes to the tensor-core kernel,
+    float32 to the SIMT kernel, each named by its launch counter."""
+    from repro_torch.device import LAUNCHES
+    from repro_torch.kernels.flash_attention import kernel
+
+    q, k, v = (_bf(2, 40, 8, D, dtype=dtype), _bf(2, 40, 2, D, dtype=dtype),
+               _bf(2, 40, 2, Dv, dtype=dtype))
+    assert kernel.select_kernel(q, k, v) == kernel_name
+    assert kernel_name in LAUNCHES
+
+
+def test_select_kernel_takes_aligned_views():
+    """A slice of a fused projection and a transpose keep 16-byte strides;
+    a dimension of size 1 may carry any stride."""
+    from repro_torch.kernels.flash_attention import kernel
+
+    fused = _bf(2, 40, 9, 64)
+    k = _bf(2, 2, 40, 64).transpose(1, 2)
+    assert kernel.select_kernel(fused[:, :, 1:], k, k) == "flash_attention"
+    one = _bf(1, 40, 1, 64).as_strided((1, 40, 1, 64), (7, 64, 3, 1))
+    assert kernel.tma_strides(one) == (40 * 64, 64, 64)
+    assert kernel.select_kernel(one, one, one) == "flash_attention"
+
+
+@pytest.mark.parametrize("case,match", [
+    ("d24", "multiples of 16"),
+    ("d272", "exceed 256"),
+    ("dv8", "multiples of 16"),
+    ("stride", "16 bytes"),
+    ("base", "16-byte-aligned base"),
+    ("float16", "no kernel takes"),
+    ("mixed", "differs from q's"),
+    ("gqa", "do not group"),
+    ("no_keys", "at least one key"),
+])
+def test_select_kernel_refuses_what_no_kernel_takes(case, match):
+    from repro_torch.kernels.flash_attention import kernel
+
+    q, k, v = _bf(1, 8, 4, 64), _bf(1, 8, 2, 64), _bf(1, 8, 2, 64)
+    if case == "d24":
+        q, k, v = _bf(1, 8, 4, 24), _bf(1, 8, 2, 24), _bf(1, 8, 2, 24)
+    elif case == "d272":
+        q, k, v = _bf(1, 8, 4, 272), _bf(1, 8, 2, 272), _bf(1, 8, 2, 272)
+    elif case == "dv8":
+        v = _bf(1, 8, 2, 8)
+    elif case == "stride":   # rows 68 bf16 (136 bytes) apart
+        q = _bf(1, 8, 4, 68)[..., :64]
+    elif case == "base":     # starts 8 bytes into its storage
+        q = _bf(1, 8, 4, 68)[..., 4:]
+        q = q.as_strided((1, 8, 4, 64), (8 * 4 * 64, 4 * 64, 64, 1))
+    elif case == "float16":
+        q, k, v = (t.half() for t in (q, k, v))
+    elif case == "mixed":
+        k = k.float()
+    elif case == "gqa":
+        k, v = _bf(1, 8, 3, 64), _bf(1, 8, 3, 64)
+    elif case == "no_keys":
+        k, v = _bf(1, 0, 2, 64), _bf(1, 0, 2, 64)
+    with pytest.raises(ValueError, match=match):
+        kernel.select_kernel(q, k, v)
+
+
+def test_kernel_wrapper_refuses_cpu_tensors():
+    """The wrapper only launches; CPU tensors take the plain version in
+    ``ops``, never the kernel module."""
+    from repro_torch.kernels.flash_attention import kernel
+
+    q = _bf(1, 8, 2, 64)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernel.flash_attention_fwd(q, q, q, scale=0.125)

@@ -81,8 +81,13 @@ def test_decode_steps_match_reference(arch):
     full, _, _ = TM.forward(tp, tcfg, {"tokens": torch.from_numpy(toks)})
     torch.testing.assert_close(torch.stack(outs, 1), full, rtol=5e-2,
                                atol=5e-4)
-    with pytest.raises(IndexError, match="past the cache"):
-        TM.decode_step(tp, tcfg, ct, {"tokens": torch.from_numpy(toks[:, :1])})
+    # a step past the cache's end writes onto its last position, as the
+    # reference's dynamic_update_slice does, and attends to every position
+    nxt = toks[:, :1]
+    lj, cj = step(params, cj, {"tokens": jnp.asarray(nxt)})
+    lt, ct = TM.decode_step(tp, tcfg, ct, {"tokens": torch.from_numpy(nxt)})
+    _close(lt, lj)
+    assert ct["pos"] == int(cj["pos"]) == 9
 
 
 def test_init_model_layout_matches_reference():
@@ -163,3 +168,69 @@ def test_common_pieces_and_loss_match_reference():
                                     jnp.asarray(labels))), rtol=1e-6)
     assert TM.model_input_dtypes(t_smoke("qwen2-vl-7b")) == \
         JM.model_input_dtypes(get_smoke_config("qwen2-vl-7b"))
+
+
+def test_route_breaks_ties_as_the_reference_does():
+    """A router with three equal columns ties experts 1, 2 and 3 on every
+    token: ``_route`` picks the lower expert first, as ``jax.lax.top_k``
+    does, and ``moe_forward`` on both dispatch paths gives the reference's
+    output."""
+    from repro.models import moe as JMoE
+    from repro_torch.models import moe as TMoE
+
+    arch = "phi3.5-moe-42b-a6.6b"
+    cfg, tcfg = get_smoke_config(arch), t_smoke(arch)
+    params = jax.device_get(JMoE.init_moe(jax.random.PRNGKey(5), cfg))
+    rng = np.random.default_rng(5)
+    router = (rng.normal(size=(cfg.d_model, cfg.num_experts))
+              / np.sqrt(cfg.d_model)).astype(np.float32)
+    router[:, 2] = router[:, 1]
+    router[:, 3] = router[:, 1]
+    params = dict(params, router=router)
+    tp = params_from_numpy(params, device="cpu")
+    x = rng.normal(size=(2, 24, cfg.d_model)).astype(np.float32)
+    flat = x.reshape(-1, cfg.d_model)
+    idx_j, w_j, aux_j = JMoE._route(params, jnp.asarray(flat), cfg)
+    idx_t, w_t, aux_t = TMoE._route(tp, torch.from_numpy(flat), tcfg)
+    np.testing.assert_array_equal(idx_t.numpy(), np.asarray(idx_j))
+    _close(w_t, w_j, 1e-6)
+    np.testing.assert_allclose(float(aux_t), float(aux_j), rtol=1e-6)
+    for dispatch in ("einsum", "sort"):
+        yj, _ = JMoE.moe_forward(params, jnp.asarray(x), cfg,
+                                 dispatch=dispatch)
+        yt, _ = TMoE.moe_forward(tp, torch.from_numpy(x), tcfg,
+                                 dispatch=dispatch)
+        _close(yt, yj)
+
+
+@pytest.mark.parametrize("past", [-1, 0, 3])
+def test_gqa_decode_at_and_past_the_cache_end_matches_reference(past):
+    """``gqa_decode`` at ``cur_pos`` = S - 1, S and S + 3 of an S-position
+    cache: the write lands on position ``min(cur_pos, S - 1)`` and the step
+    attends with ``cur_pos``'s mask, as in the reference."""
+    from repro.models import attention as JA
+    from repro.models import common as JC
+    from repro_torch.models import attention as TA
+    from repro_torch.models import common as TC
+
+    arch = "yi-9b"
+    cfg, tcfg = get_smoke_config(arch), t_smoke(arch)
+    params = JA.init_gqa(jax.random.PRNGKey(6), cfg)
+    tp = params_from_numpy(jax.device_get(params), device="cpu")
+    B, S, KH, Dh = 2, 8, cfg.num_kv_heads, cfg.head_dim
+    cur = S + past
+    rng = np.random.default_rng(6)
+    x = rng.normal(size=(B, 1, cfg.d_model)).astype(np.float32)
+    kc, vc = (rng.normal(size=(B, S, KH, Dh)).astype(np.float32)
+              for _ in range(2))
+    pos = np.full((1, 1), cur, np.int32)
+    sj, cj = JC.rope(jnp.asarray(pos), Dh, cfg.rope_theta)
+    st, ct = TC.rope(torch.from_numpy(pos), Dh, tcfg.rope_theta)
+    oj, (kj, vj) = JA.gqa_decode(params, jnp.asarray(x), cfg, sj, cj,
+                                 jnp.asarray(kc), jnp.asarray(vc), cur)
+    ot, (kt, vt) = TA.gqa_decode(tp, torch.from_numpy(x), tcfg, st, ct,
+                                 torch.from_numpy(kc.copy()),
+                                 torch.from_numpy(vc.copy()), cur)
+    _close(ot, oj)
+    _close(kt, kj)
+    _close(vt, vj)
