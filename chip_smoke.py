@@ -13,7 +13,10 @@ Phases (any mismatch or exception ends the run with a non-zero exit code):
    the main path gives it, with timings (CUDA events, median of 20 launches)
    of the kernel, the plain version and, where one exists, the PyTorch
    library call that computes the same function, beside the least time the
-   card could take for the bytes moved;
+   card could take for the bytes moved; ``radix_rank`` at the join's build
+   and probe sides, ``radix_sort_pass`` with the digit passes that ran and
+   on columns that vary in chosen digits only, and the MoE kernels also at
+   the decode shape;
 3. the main path, ``repro_torch.core.Session(policy="tensor",
    device="cuda")``, on a TPC-H SF1 deployment made with numpy from
    ``--seed``: (Q-a) lineitem ⋈ orders → filter → sort → sum, (Q-b) the same
@@ -287,26 +290,37 @@ def kernel_phase(orders, lineitem, dev):
     ids_p = (pk0c >> shift).contiguous()
     rows = []
 
-    # radix_rank at the probe side's shape (the build side is checked too)
+    # radix_rank at the probe side's shape and the build side's, each
+    # against its plain version; the row is the probe side's
     err = 0
-    for ids in (ids_b, ids_p):
+    rank_ms, rank_bound = {}, {}
+    for side, ids in (("build", ids_b), ("probe", ids_p)):
         got = K.radix_rank(ids, nblocks)
         want = ref.radix_rank_ref(ids, nblocks)
         err = max(err, int_err(got, want))
         for g, w in zip(got, want):
             if not torch.equal(g, w):
-                fail("radix_rank disagrees with its plain version")
+                fail(f"radix_rank ({side} side) disagrees with its plain "
+                     f"version")
+        n = ids.numel()
+        rank_bound[side] = bound(n * 4 * 2 + nblocks * 4, n)
+        rank_ms[side] = time_ms(lambda: K.radix_rank(ids, nblocks))
+        print(f"radix_rank {side} side: n={n}, buckets={nblocks}: "
+              f"{rank_ms[side]:.4f} ms, bound {rank_bound[side][0]:.4f} ms "
+              f"by {rank_bound[side][1]}", flush=True)
     n = ids_p.numel()
-    t_b, by = bound(n * 4 * 2 + nblocks * 4, n)
+    t_b, by = rank_bound["probe"]
     rows.append({"name": "radix_rank", "route": "cuda",
                  "source": "src/repro_torch/csrc/segment_join.cu",
                  "replaces": "src/repro/kernels/segment_join/kernel.py:106",
-                 "max_abs_err": err,
-                 "ms": time_ms(lambda: K.radix_rank(ids_p, nblocks)),
+                 "max_abs_err": err, "ms": rank_ms["probe"],
                  "plain_ms": time_ms(lambda: ref.radix_rank_ref(ids_p,
                                                                 nblocks)),
                  "bound_ms": t_b, "bound_by": by, "library_ms": None,
-                 "shape": f"n={n}, buckets={nblocks}"})
+                 "build_side_ms": rank_ms["build"],
+                 "build_side_bound_ms": rank_bound["build"][0],
+                 "shape": f"n={n}, buckets={nblocks} (build side "
+                          f"n={ids_b.numel()}: {rank_ms['build']:.4f} ms)"})
 
     # table build over the radix-ordered build side
     bdest, _ = ops.radix_partition(ids_b, nblocks)
@@ -463,7 +477,46 @@ def sort_kernel_phase(orders, dev):
               f"torch.sort composition "
               f"{time_ms(lambda: library(cols, mask)):.4f} ms, bound "
               f"{t_b:.4f} ms by {by}", flush=True)
+    # the pass sorts only on the 8-bit digits in which the keys differ,
+    # decided on the device: the passes that ran must be the digits the
+    # plain version finds varying (3 of 8 for o_custkey, 2 of 4 for
+    # o_orderdate), and columns that vary in chosen digits only must give
+    # the plain version's permutation, with and without an incoming one
+    passes = {}
+    for name, col in (("o_custkey", ck_f), ("o_orderdate", od_f)):
+        _, ran = K.digit_passes_run(col)
+        if ran != ref.digit_mask_ref(col):
+            fail(f"radix_sort_pass on {name} ran digit passes {ran:#x}, the "
+                 f"varying digits are {ref.digit_mask_ref(col):#x}")
+        passes[name] = f"{bin(ran).count('1')} of {col.element_size()}"
+        print(f"sort {name}: {passes[name]} digit passes ran (mask "
+              f"{ran:#x})", flush=True)
     n = ck_f.numel()
+    gen = torch.Generator(device=dev).manual_seed(1)
+    small = torch.randint(0, 256, (n,), generator=gen, device=dev)
+    cases = {
+        "all equal": torch.full((n,), 150_000, dtype=torch.int64,
+                                device=dev),
+        "top digit only": small << 56,
+        "lowest digit only": (1234 << 8) + small,
+        "negative only": -1 - ck_f,
+        "-0.0, +0.0, NaN": torch.where(
+            small < 85, -0.0, torch.where(small < 170, 0.0, float("nan"))
+        ).to(torch.float32),
+    }
+    perm = torch.randperm(n, generator=gen, device=dev)
+    for what, col in cases.items():
+        for p in (None, perm):
+            got, ran = K.digit_passes_run(col, p)
+            if not torch.equal(got, ref.radix_sort_pass_ref(col, p)):
+                fail(f"radix_sort_pass on a column with {what} (perm "
+                     f"{p is not None}) disagrees with its plain version")
+            if ran != ref.digit_mask_ref(col):
+                fail(f"radix_sort_pass on a column with {what} ran digit "
+                     f"passes {ran:#x}, not {ref.digit_mask_ref(col):#x}")
+            err = max(err, int_err((got,), (ref.radix_sort_pass_ref(col, p),)))
+    print(f"sort constant-digit cases ({', '.join(cases)}), with and "
+          f"without perm: equal to the plain version", flush=True)
     t_b, by = bound(n * 8 + n * 8, n)
     return {"name": "radix_sort_pass", "route": "cuda",
             "source": "src/repro_torch/csrc/multikey_sort.cu",
@@ -473,7 +526,10 @@ def sort_kernel_phase(orders, dev):
             "plain_ms": time_ms(lambda: ref.radix_sort_pass_ref(ck_f), 5),
             "bound_ms": t_b, "bound_by": by,
             "library_ms": time_ms(lambda: torch.sort(ck_f, stable=True)),
-            "shape": f"n={n}, int64 key (o_custkey of Q-d's rows)"}
+            "digit_passes": passes["o_custkey"],
+            "shape": f"n={n}, int64 key (o_custkey of Q-d's rows), "
+                     f"{passes['o_custkey']} digit passes ran "
+                     f"(o_orderdate: {passes['o_orderdate']})"}
 
 
 ATTN_F32_TOL = 2e-5
@@ -650,6 +706,39 @@ def lm_kernel_phase(dev, seed: int):
                  "library_ms": time_ms(
                      lambda: torch.index_select(flat, 0, rows_c) * w_b),
                  "shape": f"T={T}, d={d}, E={E}, C={C}, bf16"})
+    # decode shape: one token per request of a batch of SERVE_BATCH, as
+    # every decode step of phase 6 dispatches them (most of the launches)
+    T4 = SERVE_BATCH
+    C4 = capacity_per_expert(T4, E, cfg.experts_per_token,
+                             cfg.capacity_factor)
+    x4 = randn(T4, d)
+    idx4, w4, _ = _route({"router": router}, x4, cfg)
+    slot4 = MO.expert_slots(idx4, E)
+    e4 = idx4[:, 0].to(torch.int32).contiguous()
+    s4 = slot4[:, 0].contiguous()
+    w4 = w4[:, 0].contiguous()
+    buf4 = MK.moe_dispatch(x4, e4, s4, E, C4)
+    y4 = MK.moe_combine(buf4, e4, s4, w4)
+    if not (torch.equal(buf4, MR.dispatch_ref(x4, e4, s4, E, C4))
+            and torch.equal(y4, MR.combine_ref(buf4, e4, s4, w4))):
+        fail("moe_dispatch/moe_combine disagree with their plain versions "
+             "at decode shape")
+    kept4 = int((s4 < C4).sum())
+    decode = {
+        "moe_dispatch": (
+            time_ms(lambda: MK.moe_dispatch(x4, e4, s4, E, C4)),
+            bound(kept4 * d * 2 + T4 * 8 + E * C4 * d * 2, kept4 * d)),
+        "moe_combine": (
+            time_ms(lambda: MK.moe_combine(buf4, e4, s4, w4)),
+            bound(kept4 * d * 2 + T4 * 12 + T4 * d * 2, T4 * d)),
+    }
+    for r in rows:
+        if r["name"] in decode:
+            ms, (t_b, by) = decode[r["name"]]
+            r.update(decode_ms=ms, decode_bound_ms=t_b)
+            print(f"{r['name']} at decode shape (T={T4}, d={d}, E={E}, "
+                  f"C={C4}, bf16, {kept4} routed rows): {ms:.4f} ms, bound "
+                  f"{t_b:.6f} ms by {by}", flush=True)
     # duplicate and dropped slots, float32: exact
     xs = randn(2000, 256, dtype=torch.float32)
     es = torch.randint(-1, 5, (2000,), generator=gen, device=dev,
@@ -710,8 +799,12 @@ def main_path(orders, lineitem, want):
                 fail(f"{name} did not run as one fused fragment: {ops}")
             if set(syncs) != {1} or set(h2d) != {0}:
                 fail(f"{name}: warm host_syncs {syncs}, h2d bytes {h2d}")
-        if name == "Q-d" and "sort" not in ops:
-            fail(f"Q-d did not run the per-operator device sort: {ops}")
+        if name == "Q-d":
+            if "sort" not in ops:
+                fail(f"Q-d did not run the per-operator device sort: {ops}")
+            if set(syncs) != {1}:
+                fail(f"Q-d: warm host_syncs {syncs} (the sort must not wait "
+                     f"for the device)")
         report[name] = {"cold_s": cold,
                         "warm_p50_s": statistics.median(warm),
                         "warm_runs": WARM_RUNS, "ops": ops,
@@ -1181,9 +1274,11 @@ def main() -> None:
             fail(f"kernel {r['name']} was not launched on the main path")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    extras = {r["name"]: {k: v for k, v in r.items() if k not in keys}
+              for r in rows}
     print(json.dumps({"queries": {k: report[k] for k in QUERIES},
                       "peak_allocated_bytes": report["peak_allocated_bytes"],
-                      "serving": serving, "lm": lm}))
+                      "serving": serving, "lm": lm, "kernel_rows": extras}))
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {

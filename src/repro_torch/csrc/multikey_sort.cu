@@ -10,39 +10,29 @@
 // whole column computes the same order, (key, position) ascending, directly.
 //
 // One call of repro_radix_sort_pass sorts the rows of a permutation stably
-// by one key column:
-//   1. gather the column once through the current permutation (one random
-//      read) into a contiguous buffer of order-preserving unsigned bits:
-//      signed integers flip the sign bit; floats first turn -0.0 into +0.0
-//      and every NaN into one quiet NaN (so that the order is torch.sort's
-//      and jnp.argsort's: -0.0 == +0.0, NaN last), then flip every bit when
-//      the sign is set, else only the sign bit; unsigned integers and bool
-//      are taken as they are;
-//   2. one stable pass per 8-bit digit, least significant first, carrying
-//      (key bits, position) pairs:
-//        a. per-tile 256-bucket histograms in shared memory, written
-//           bucket-major as hist[bucket][tile];
-//        b. one block per bucket scans its column in place (the position
-//           of each tile's first row with that digit, counted within the
-//           bucket) and writes the bucket's total, so 256 blocks share
-//           the scan instead of one block walking all 256 x tiles cells;
-//        c. the scatter: every block first turns the 256 totals into
-//           bucket bases (a block scan); every warp of the tile block owns
-//           a consecutive sub-chunk and its own 256 counters in shared
-//           memory (1 KB), a prefix over the warps gives each warp its base
-//           per bucket, and each warp walks its rows in order, 32 at a
-//           time, ranking lanes with equal digits with __match_any_sync.
-//           Walking in row order inside a warp, warps in order inside a
-//           tile and tiles in order through the scan is what makes the
-//           pass stable.
-//      The last digit pass writes the int64 output permutation
-//      (perm_out[dest] = perm_in[position]) instead of the pair buffers.
+// by one key column, with the digit passes of radix_pass.cuh:
+//   1. digit_count_kernel gathers the column once through the current
+//      permutation (one random read) into a contiguous buffer of
+//      order-preserving unsigned bits: signed integers flip the sign bit;
+//      floats first turn -0.0 into +0.0 and every NaN into one quiet NaN
+//      (so that the order is torch.sort's and jnp.argsort's: -0.0 == +0.0,
+//      NaN last), then flip every bit when the sign is set, else only the
+//      sign bit; unsigned integers and bool are taken as they are.  The
+//      same read counts every 8-bit digit and reduces the OR of the bits
+//      and of their complements: the bits in which the keys differ.
+//   2. one digit_pass_kernel per digit of the key's width, on the chained
+//      schedule of radix_pass.cuh.  A digit that
+//      is the same in every key changes no order, so its pass returns at
+//      once: Q-d's int64 o_custkey (1..150,000) runs 3 of its 8 passes,
+//      o_orderdate (int32 days) 2 of 4.  The decision is taken on the
+//      device, so the host never waits for it.  The last running pass
+//      writes the int64 output permutation (perm_out[dest] =
+//      perm_in[position]); a column whose keys are all equal gets
+//      perm_out = perm_in (or the identity) from pass 0.
 //
-// Bound: bytes -- the key column is read once and the int64 permutation
-// written once; every digit pass adds a read of the key bits for the
-// histogram and a read and scattered write of the pairs, so an 8-byte key
-// costs 8 passes.  The first version runs every digit; skipping digits that
-// are constant over the column is the obvious later optimisation.
+// Bound: bytes -- the key column is read once (through perm_in) and the
+// int64 permutation written once; every running digit adds a read and a
+// scattered write of the (key bits, position) pairs.
 //
 // The exported function has a plain C interface (raw device pointers, an
 // int64 row count, the caller's stream), launches on that stream, never
@@ -51,20 +41,14 @@
 // scratch buffer of repro_radix_sort_scratch_bytes(n, elem_bytes) bytes.  It
 // returns cudaGetLastError(), so a refused launch is reported at the call.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "radix_pass.cuh"
 
 namespace {
 
-constexpr int kDigitBits = 8;
-constexpr int kBuckets = 1 << kDigitBits;
-constexpr int kThreads = 256;                  // one thread per bucket
-constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 2048;                    // rows per block
-constexpr int kWarpRows = kTile / kWarps;      // a warp's sub-chunk
-constexpr int kScanItems = 8;
-constexpr unsigned kFullMask = 0xffffffffu;
-static_assert(kThreads == kBuckets, "the warp prefix gives one bucket per thread");
+using radix::Buffers;
+using radix::State;
+using radix::align_up;
+using radix::kThreads;
 
 enum KeyKind { kUnsigned = 0, kSigned = 1, kFloat = 2 };
 
@@ -96,182 +80,39 @@ __device__ __forceinline__ uint64_t order_bits(uint64_t raw, int elem_bytes,
   return raw;
 }
 
+// Step 1's source: the column through perm_in, mapped to order bits and
+// stored into the first key buffer.
 template <typename K>
-__global__ void gather_bits_kernel(const void* __restrict__ col, int elem_bytes,
-                                   int kind, uint64_t inf_bits,
-                                   const int64_t* __restrict__ perm_in,
-                                   long long n, K* __restrict__ keys,
-                                   int32_t* __restrict__ pos) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < n; i += stride) {
+struct GatherBits {
+  const void* col;
+  int elem_bytes, kind;
+  uint64_t inf_bits;
+  const int64_t* perm_in;
+  K* keys;
+  __device__ K key(long long i) const {
     const long long r = perm_in ? perm_in[i] : i;
-    keys[i] = static_cast<K>(
+    const K k = static_cast<K>(
         order_bits(load_raw(col, r, elem_bytes), elem_bytes, kind, inf_bits));
-    pos[i] = static_cast<int32_t>(i);
+    keys[i] = k;
+    return k;
   }
-}
+};
 
+// Step 2's ends: the first pass reads the gathered bits, the last writes
+// the permutation.
 template <typename K>
-__device__ __forceinline__ int digit_of(K key, int shift) {
-  return static_cast<int>((key >> shift) & static_cast<K>(kBuckets - 1));
-}
-
-// a. hist[b * num_tiles + t] = rows of tile t whose digit is b
-template <typename K>
-__global__ void digit_hist_kernel(const K* __restrict__ keys, long long n,
-                                  int shift, int num_tiles,
-                                  int32_t* __restrict__ hist) {
-  __shared__ int32_t counts[kBuckets];
-  const int lane = threadIdx.x & 31;
-  counts[threadIdx.x] = 0;
-  __syncthreads();
-  const long long lo = static_cast<long long>(blockIdx.x) * kTile;
-  const long long hi = (lo + kTile < n) ? lo + kTile : n;
-  for (long long base = lo + (threadIdx.x & ~31); base < hi;
-       base += kThreads) {
-    const long long i = base + lane;
-    const int d = (i < hi) ? digit_of(keys[i], shift) : -1;
-    // one shared atomic per distinct digit in the warp: a column whose
-    // high bytes are constant would otherwise serialise 32 lanes on one
-    // counter
-    const unsigned peers = __match_any_sync(kFullMask, d);
-    if (d >= 0 && lane == __ffs(peers) - 1) atomicAdd(&counts[d], __popc(peers));
+struct PermEnds {
+  const K* keys;
+  const int64_t* perm_in;
+  int64_t* perm_out;
+  __device__ K first_key(long long i) const { return keys[i]; }
+  __device__ void last(int32_t dest, K, int32_t p) const {
+    perm_out[dest] = perm_in ? perm_in[p] : static_cast<int64_t>(p);
   }
-  __syncthreads();
-  hist[static_cast<long long>(threadIdx.x) * num_tiles + blockIdx.x] =
-      counts[threadIdx.x];
-}
-
-// b. block b: exclusive scan in place of hist[b][0, num_tiles), the
-//    bucket's total into totals[b]
-__global__ void column_scan_kernel(int32_t* __restrict__ hist, int num_tiles,
-                                   int32_t* __restrict__ totals) {
-  __shared__ int32_t warp_sums[kWarps];
-  const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
-  int32_t* data = hist + static_cast<long long>(blockIdx.x) * num_tiles;
-  int32_t carry = 0;
-  for (int chunk = 0; chunk < num_tiles; chunk += kThreads * kScanItems) {
-    const int mine = chunk + tid * kScanItems;
-    int32_t v[kScanItems];
-    int32_t sum = 0;
-#pragma unroll
-    for (int k = 0; k < kScanItems; ++k) {
-      v[k] = (mine + k < num_tiles) ? data[mine + k] : 0;
-      sum += v[k];
-    }
-    int32_t incl = sum;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int32_t o = __shfl_up_sync(kFullMask, incl, d);
-      if (lane >= d) incl += o;
-    }
-    if (lane == 31) warp_sums[wid] = incl;
-    __syncthreads();
-    int32_t run = carry + incl - sum;
-    int32_t chunk_total = 0;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      if (w < wid) run += warp_sums[w];
-      chunk_total += warp_sums[w];
-    }
-#pragma unroll
-    for (int k = 0; k < kScanItems; ++k) {
-      if (mine + k < num_tiles) data[mine + k] = run;
-      run += v[k];
-    }
-    carry += chunk_total;
-    __syncthreads();  // warp_sums is rewritten by the next chunk
+  __device__ void identity(long long i) const {
+    perm_out[i] = perm_in ? perm_in[i] : static_cast<int64_t>(i);
   }
-  if (tid == 0) totals[blockIdx.x] = carry;
-}
-
-// c. stable scatter of one tile; hist holds the per-bucket scanned bases,
-//    totals the bucket sizes
-template <typename K>
-__global__ void digit_scatter_kernel(const K* __restrict__ keys_in,
-                                     const int32_t* __restrict__ pos_in,
-                                     long long n, int shift, int num_tiles,
-                                     const int32_t* __restrict__ hist,
-                                     const int32_t* __restrict__ totals,
-                                     K* __restrict__ keys_out,
-                                     int32_t* __restrict__ pos_out, int last,
-                                     const int64_t* __restrict__ perm_in,
-                                     int64_t* __restrict__ perm_out) {
-  __shared__ int32_t base[kWarps][kBuckets];
-  __shared__ int32_t total_sums[kWarps];
-  const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
-  const unsigned lower = (1u << lane) - 1u;
-  for (int b = lane; b < kBuckets; b += 32) base[wid][b] = 0;
-  __syncwarp();
-  // bucket tid's first output position: an exclusive scan of the totals
-  const int32_t total = totals[tid];
-  int32_t incl = total;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int32_t o = __shfl_up_sync(kFullMask, incl, d);
-    if (lane >= d) incl += o;
-  }
-  if (lane == 31) total_sums[wid] = incl;
-  const long long tile_lo = static_cast<long long>(blockIdx.x) * kTile;
-  const long long lo = tile_lo + static_cast<long long>(wid) * kWarpRows;
-  long long hi = lo + kWarpRows;
-  if (hi > n) hi = n;
-  // per-warp digit counts of the warp's sub-chunk
-  for (long long b0 = lo; b0 < hi; b0 += 32) {
-    const long long i = b0 + lane;
-    const int d = (i < hi) ? digit_of(keys_in[i], shift) : -1;
-    const unsigned peers = __match_any_sync(kFullMask, d);
-    if (d >= 0 && lane == __ffs(peers) - 1) base[wid][d] += __popc(peers);
-    __syncwarp();
-  }
-  __syncthreads();
-  // prefix over warps: thread b turns column b into per-warp bases
-  {
-    int32_t run = incl - total +
-                  hist[static_cast<long long>(tid) * num_tiles + blockIdx.x];
-    for (int w = 0; w < wid; ++w) run += total_sums[w];
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const int32_t c = base[w][tid];
-      base[w][tid] = run;
-      run += c;
-    }
-  }
-  __syncthreads();
-  for (long long b0 = lo; b0 < hi; b0 += 32) {
-    const long long i = b0 + lane;
-    const bool live = i < hi;
-    K key = 0;
-    int32_t p = 0;
-    int d = -1;
-    if (live) {
-      key = keys_in[i];
-      p = pos_in[i];
-      d = digit_of(key, shift);
-    }
-    const unsigned peers = __match_any_sync(kFullMask, d);
-    const int leader = __ffs(peers) - 1;
-    const int32_t start = live ? base[wid][d] : 0;
-    __syncwarp();
-    if (live && lane == leader) base[wid][d] = start + __popc(peers);
-    __syncwarp();
-    if (live) {
-      const int32_t dest = start + __popc(peers & lower);
-      if (last) {
-        perm_out[dest] = perm_in ? perm_in[p] : static_cast<int64_t>(p);
-      } else {
-        keys_out[dest] = key;
-        pos_out[dest] = p;
-      }
-    }
-  }
-}
-
-inline size_t align_up(size_t v) { return (v + 255) & ~static_cast<size_t>(255); }
-
-inline long long tiles_for(long long n) { return (n + kTile - 1) / kTile; }
+};
 
 inline size_t key_bytes(int elem_bytes) { return elem_bytes > 4 ? 8 : 4; }
 
@@ -279,37 +120,29 @@ template <typename K>
 int sort_pass(const void* col, int elem_bytes, int kind, uint64_t inf_bits,
               const int64_t* perm_in, long long n, int64_t* perm_out,
               unsigned char* scratch, cudaStream_t s) {
-  const long long num_tiles = tiles_for(n);
-  unsigned char* p = scratch;
-  K* keys[2];
-  int32_t* pos[2];
+  const size_t state = radix::state_bytes(n);
+  cudaMemsetAsync(scratch, 0, state, s);
+  const State st = radix::carve_state(scratch);
+  unsigned char* p = scratch + state;
+  Buffers<K> buf;
   for (int k = 0; k < 2; ++k) {
-    keys[k] = reinterpret_cast<K*>(p);
+    buf.keys[k] = reinterpret_cast<K*>(p);
     p += align_up(n * sizeof(K));
   }
   for (int k = 0; k < 2; ++k) {
-    pos[k] = reinterpret_cast<int32_t*>(p);
+    buf.pos[k] = reinterpret_cast<int32_t*>(p);
     p += align_up(n * sizeof(int32_t));
   }
-  int32_t* hist = reinterpret_cast<int32_t*>(p);
-  p += align_up(static_cast<size_t>(num_tiles) * kBuckets * sizeof(int32_t));
-  int32_t* totals = reinterpret_cast<int32_t*>(p);
-  long long grid = (n + kThreads - 1) / kThreads;
-  if (grid > 132 * 16) grid = 132 * 16;
-  gather_bits_kernel<K><<<static_cast<int>(grid), kThreads, 0, s>>>(
-      col, elem_bytes, kind, inf_bits, perm_in, n, keys[0], pos[0]);
-  const int passes = elem_bytes;  // 8-bit digits
-  for (int pass = 0; pass < passes; ++pass) {
-    const int shift = pass * kDigitBits;
-    const int src = pass & 1, dst = src ^ 1;
-    const int last = pass == passes - 1;
-    digit_hist_kernel<K><<<static_cast<int>(num_tiles), kThreads, 0, s>>>(
-        keys[src], n, shift, static_cast<int>(num_tiles), hist);
-    column_scan_kernel<<<kBuckets, kThreads, 0, s>>>(
-        hist, static_cast<int>(num_tiles), totals);
-    digit_scatter_kernel<K><<<static_cast<int>(num_tiles), kThreads, 0, s>>>(
-        keys[src], pos[src], n, shift, static_cast<int>(num_tiles), hist,
-        totals, keys[dst], pos[dst], last, perm_in, perm_out);
+  const int digits = elem_bytes;  // 8-bit digits
+  radix::digit_count_kernel<K><<<radix::count_grid(n), kThreads, 0, s>>>(
+      GatherBits<K>{col, elem_bytes, kind, inf_bits, perm_in, buf.keys[0]}, n,
+      digits, st);
+  const PermEnds<K> ends{buf.keys[0], perm_in, perm_out};
+  const int tiles = static_cast<int>(radix::tiles_for(n));
+  for (int pass = 0; pass < digits; ++pass) {
+    radix::digit_pass_kernel<K, PermEnds<K>, true>
+        <<<tiles, kThreads, 0, s>>>(ends, buf, n, pass, digits, st, nullptr,
+                                    tiles);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -325,11 +158,15 @@ const char* repro_sort_error_string(int code) {
 // Bytes of scratch repro_radix_sort_pass needs for n rows of elem_bytes.
 long long repro_radix_sort_scratch_bytes(long long n, int elem_bytes) {
   if (n <= 0) return 0;
-  return static_cast<long long>(
-      2 * align_up(n * key_bytes(elem_bytes)) +
-      2 * align_up(n * sizeof(int32_t)) +
-      align_up(static_cast<size_t>(tiles_for(n)) * kBuckets * sizeof(int32_t)) +
-      align_up(kBuckets * sizeof(int32_t)));
+  return static_cast<long long>(radix::state_bytes(n) +
+                                2 * align_up(n * key_bytes(elem_bytes)) +
+                                2 * align_up(n * sizeof(int32_t)));
+}
+
+// Byte offset in the scratch of the uint32 word whose bit p says that digit
+// pass p ran (read back by tests and the smoke run after a call).
+long long repro_radix_sort_ran_offset(void) {
+  return static_cast<long long>(radix::ran_offset());
 }
 
 // perm_out[k] = perm_in[j] (or j when perm_in is null), where j runs over

@@ -16,8 +16,7 @@
 // does the same work in O(N) bytes and no arithmetic to speak of.  All four
 // kernels are therefore bound by memory traffic, not by operations.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "radix_pass.cuh"
 
 namespace {
 
@@ -83,100 +82,67 @@ __global__ void segment_sum_f64_kernel(const int32_t* __restrict__ seg,
 //
 // Replaces segment_join/kernel.py::radix_rank_pallas, whose sequential TPU
 // grid carries the running per-bucket base from tile to tile.  Hopper's
-// blocks run in no order, so the carry becomes an explicit scan:
-//   1. per-tile histograms (shared-memory atomics; order is irrelevant for
-//      counts), written row-major as hist[tile][bucket];
-//   2. one thread per bucket walks the tiles in order and turns its column
-//      into exclusive per-tile bases, leaving the total in counts[bucket];
-//   3. one warp per tile walks its rows in order, 32 at a time: lanes with
-//      the same bucket find each other with __match_any_sync, a lane's rank
-//      is the base plus the number of lower lanes in its group, and the
-//      group's lowest lane advances the base.  Walking in row order is what
-//      makes the rank stable; atomics alone would not be.
-// Ids outside [0, num_buckets) get rank 0 and are not counted (the padding
-// contract of the TPU kernel).
-// Bound: bytes -- the ids are read twice and the ranks written once; the
-// tile histograms add 4 x tiles x buckets x 4 bytes of traffic (written,
-// read and rewritten by the scan, read by the rank pass), which the
-// tile size keeps near the size of the ids.  The per-tile base table lives
-// in shared memory when it fits (dynamic shared memory, opted in above
-// 48 KB), else the warp works on its row of the global histogram in place.
+// blocks run in no order, and a per-tile histogram row of every bucket
+// (16,385 at the join's probe) is larger than the tile's ids.  So the rank
+// is read off a stable counting sort of (bucket id, position) by the 8-bit
+// digits of the id, on the counted schedule of radix_pass.cuh:
+// ceil(bits(B) / 8) passes for B buckets (2 at 16,385, 3 at 100,000), a
+// number the host knows, each with a parallelism that does not fall as
+// buckets grow.
+//   1. per digit, tile_hist_kernel counts each 2,048-row tile's digits
+//      (the first also counts the ids into the bucket histogram, counts,
+//      with one atomic per warp and id while the warp's ids are equal) and
+//      column_scan_kernel scans them over the tiles;
+//   2. exclusive_scan_kernel turns counts into bucket offsets;
+//   3. per digit, digit_pass_kernel scatters the (key, position) pairs; the
+//      last writes rank[position] = dest - offset[bucket], dest being the
+//      row's place in the sorted order.
+// Ids outside [0, num_buckets) take the key num_buckets, above every live
+// id, so they sort last and disturb no live rank; they get rank 0 and are
+// not counted (the padding contract of the TPU kernel).
+// Bound: bytes -- the ids are read once and the ranks written once; each
+// digit adds a read of the keys for its counts and a read and write of the
+// (key, position) pairs.
 // ---------------------------------------------------------------------------
-__global__ void radix_hist_kernel(const int32_t* __restrict__ ids, long long n,
-                                  int num_buckets, int tile, int use_smem,
-                                  int32_t* __restrict__ hist) {
-  extern __shared__ int32_t sh[];
-  const long long t = blockIdx.x;
-  // each block owns its tile's row, so it zeroes the counts it adds into
-  // (the caller's scratch is uninitialised)
-  int32_t* h = use_smem ? sh : hist + t * num_buckets;
-  for (int b = threadIdx.x; b < num_buckets; b += blockDim.x) h[b] = 0;
-  __syncthreads();
-  const long long lo = t * tile;
-  long long hi = lo + tile;
-  if (hi > n) hi = n;
-  for (long long i = lo + threadIdx.x; i < hi; i += blockDim.x) {
+struct RankEnds {
+  const int32_t* ids;
+  uint32_t num_buckets;
+  int32_t* counts;
+  const int32_t* offsets;
+  int32_t* rank;
+  __device__ uint32_t first_key(long long i) const {
     const int b = ids[i];
-    if (b >= 0 && b < num_buckets) atomicAdd(&h[b], 1);
+    return (b >= 0 && static_cast<uint32_t>(b) < num_buckets)
+               ? static_cast<uint32_t>(b) : num_buckets;
   }
-  if (use_smem) {
-    __syncthreads();
-    int32_t* row = hist + t * num_buckets;
-    for (int b = threadIdx.x; b < num_buckets; b += blockDim.x) row[b] = h[b];
+  __device__ void visit(uint32_t key, int c) const {
+    if (key < num_buckets) atomicAdd(&counts[key], c);
   }
+  __device__ void last(int32_t dest, uint32_t key, int32_t p) const {
+    rank[p] = key < num_buckets ? dest - offsets[key] : 0;
+  }
+  // every digit pass runs, so pass 0 always sorts
+  __device__ void identity(long long) const {}
+};
+
+constexpr int kScanThreads = 1024;
+
+// offsets = exclusive scan of counts[0, n), by one block
+__global__ void __launch_bounds__(kScanThreads)
+exclusive_scan_kernel(const int32_t* __restrict__ counts, int n,
+                      int32_t* __restrict__ offsets) {
+  radix::block_exclusive_scan<kScanThreads>(counts, offsets, n, 0);
 }
 
-__global__ void radix_scan_kernel(int32_t* __restrict__ hist, int num_tiles,
-                                  int num_buckets,
-                                  int32_t* __restrict__ counts) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= num_buckets) return;
-  int32_t running = 0;
-  for (int t = 0; t < num_tiles; ++t) {
-    int32_t* cell = hist + static_cast<long long>(t) * num_buckets + b;
-    const int32_t v = *cell;
-    *cell = running;
-    running += v;
-  }
-  counts[b] = running;
+inline int rank_digits(int num_buckets) {
+  int bits = 0;  // bits of the largest key, num_buckets itself
+  for (unsigned v = static_cast<unsigned>(num_buckets); v; v >>= 1) ++bits;
+  return (bits + radix::kDigitBits - 1) / radix::kDigitBits;
 }
 
-__global__ void radix_rank_kernel(const int32_t* __restrict__ ids, long long n,
-                                  int num_buckets, int tile, int use_smem,
-                                  int32_t* __restrict__ hist,
-                                  int32_t* __restrict__ rank) {
-  extern __shared__ int32_t sh[];
-  const long long t = blockIdx.x;
-  const int lane = threadIdx.x;  // one warp per tile
-  int32_t* row = hist + t * num_buckets;
-  int32_t* h = use_smem ? sh : row;
-  if (use_smem) {
-    for (int b = lane; b < num_buckets; b += 32) h[b] = row[b];
-    __syncwarp();
-  }
-  const unsigned lower = (1u << lane) - 1u;
-  const long long lo = t * tile;
-  long long hi = lo + tile;
-  if (hi > n) hi = n;
-  for (long long base = lo; base < hi; base += 32) {
-    const long long i = base + lane;
-    int b = -1;
-    if (i < hi) {
-      b = ids[i];
-      if (b < 0 || b >= num_buckets) b = -1;
-    }
-    const unsigned peers = __match_any_sync(kFullMask, b);
-    const int leader = __ffs(peers) - 1;
-    int32_t start = 0;
-    if (lane == leader && b >= 0) {
-      start = h[b];
-      h[b] = start + __popc(peers);
-    }
-    start = __shfl_sync(kFullMask, start, leader);
-    __syncwarp();
-    if (i < hi) rank[i] = (b >= 0) ? start + __popc(peers & lower) : 0;
-  }
-}
+// key and position buffers the passes need: none for one digit, one for
+// two (the first pass writes it, the last reads it), else two
+inline int rank_buffers(int digits) { return digits >= 3 ? 2 : digits - 1; }
 
 // ---------------------------------------------------------------------------
 // join_table_build: cnt[c] = build rows with code c; inv[c] = largest
@@ -261,40 +227,62 @@ int repro_segment_sum_f64(const void* seg, const void* vals, long long n,
   return static_cast<int>(cudaGetLastError());
 }
 
-// hist: [num_tiles * num_buckets] int32 scratch, uninitialised (every row is
-// written by radix_hist_kernel); counts: [num_buckets].
-int repro_radix_rank(const void* ids, long long n, int num_buckets, int tile,
-                     void* hist, void* counts, void* rank, void* stream) {
+// Bytes of scratch repro_radix_rank needs for n ids into num_buckets.
+long long repro_radix_rank_scratch_bytes(long long n, int num_buckets) {
+  if (n <= 0 || num_buckets <= 0) return 0;
+  const size_t pair = radix::align_up(n * sizeof(uint32_t)) +
+                      radix::align_up(n * sizeof(int32_t));
+  return static_cast<long long>(
+      radix::digit_counts_bytes() +
+      radix::align_up(static_cast<size_t>(radix::tiles_for(n)) *
+                      radix::kBuckets * sizeof(int32_t)) +
+      radix::align_up(static_cast<size_t>(num_buckets) * sizeof(int32_t)) +
+      rank_buffers(rank_digits(num_buckets)) * pair);
+}
+
+// rank: [n] int32, counts: [num_buckets] int32 (both written here);
+// scratch: repro_radix_rank_scratch_bytes(n, num_buckets) bytes.
+int repro_radix_rank(const void* ids, long long n, int num_buckets,
+                     void* scratch, void* counts, void* rank, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (num_buckets <= 0 || tile <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int num_tiles = static_cast<int>((n + tile - 1) / tile);
-  const size_t smem_bytes = static_cast<size_t>(num_buckets) * sizeof(int32_t);
-  int max_optin = 0, dev = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&max_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                         dev);
-  const int use_smem = smem_bytes <= static_cast<size_t>(max_optin) ? 1 : 0;
-  const size_t dyn = use_smem ? smem_bytes : 0;
-  if (use_smem && dyn > 48 * 1024) {
-    cudaFuncSetAttribute(radix_hist_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(dyn));
-    cudaFuncSetAttribute(radix_rank_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(dyn));
+  if (num_buckets <= 0 || n <= 0 || n > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int digits = rank_digits(num_buckets);
+  const int tiles = static_cast<int>(radix::tiles_for(n));
+  unsigned char* p = static_cast<unsigned char*>(scratch);
+  radix::State st = {};
+  st.digit_counts = reinterpret_cast<int32_t*>(p);
+  p += radix::digit_counts_bytes();
+  int32_t* tile_prefix = reinterpret_cast<int32_t*>(p);
+  p += radix::align_up(static_cast<size_t>(tiles) * radix::kBuckets *
+                       sizeof(int32_t));
+  int32_t* offsets = reinterpret_cast<int32_t*>(p);
+  p += radix::align_up(static_cast<size_t>(num_buckets) * sizeof(int32_t));
+  radix::Buffers<uint32_t> buf = {{nullptr, nullptr}, {nullptr, nullptr}};
+  for (int k = 2 - rank_buffers(digits); k < 2; ++k) {
+    buf.keys[k] = reinterpret_cast<uint32_t*>(p);
+    p += radix::align_up(n * sizeof(uint32_t));
+    buf.pos[k] = reinterpret_cast<int32_t*>(p);
+    p += radix::align_up(n * sizeof(int32_t));
   }
-  if (num_tiles > 0) {
-    radix_hist_kernel<<<num_tiles, 256, dyn, s>>>(
-        static_cast<const int32_t*>(ids), n, num_buckets, tile, use_smem,
-        static_cast<int32_t*>(hist));
-  }
-  radix_scan_kernel<<<(num_buckets + 255) / 256, 256, 0, s>>>(
-      static_cast<int32_t*>(hist), num_tiles, num_buckets,
-      static_cast<int32_t*>(counts));
-  if (num_tiles > 0) {
-    radix_rank_kernel<<<num_tiles, 32, dyn, s>>>(
-        static_cast<const int32_t*>(ids), n, num_buckets, tile, use_smem,
-        static_cast<int32_t*>(hist), static_cast<int32_t*>(rank));
+  cudaMemsetAsync(counts, 0, static_cast<size_t>(num_buckets) * sizeof(int32_t),
+                  s);
+  const RankEnds ends{static_cast<const int32_t*>(ids),
+                      static_cast<uint32_t>(num_buckets),
+                      static_cast<int32_t*>(counts), offsets,
+                      static_cast<int32_t*>(rank)};
+  for (int pass = 0; pass < digits; ++pass) {
+    radix::tile_hist_kernel<uint32_t><<<tiles, radix::kThreads, 0, s>>>(
+        ends, buf, n, pass, tiles, tile_prefix);
+    radix::column_scan_kernel<<<radix::kBuckets, radix::kThreads, 0, s>>>(
+        tile_prefix, tiles, st.digit_counts + pass * radix::kBuckets);
+    if (pass == 0) {
+      exclusive_scan_kernel<<<1, kScanThreads, 0, s>>>(
+          static_cast<const int32_t*>(counts), num_buckets, offsets);
+    }
+    radix::digit_pass_kernel<uint32_t, RankEnds, false>
+        <<<tiles, radix::kThreads, 0, s>>>(ends, buf, n, pass, digits, st,
+                                           tile_prefix, tiles);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,7 +9,8 @@ The hand-written kernels live in ``src/repro_torch/csrc/*.cu`` with a plain
 C interface.  :func:`kernel_library` compiles them at first use with
 ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC``
 into ``build/repro_torch_kernels/<hash>/`` at the repository root (the hash
-covers the sources and the flags, so an edited source rebuilds) and loads
+covers the sources, the headers they share and the flags, so an edited
+source or header rebuilds) and loads
 the shared library with ``ctypes``.  Nothing here runs at import time.
 
 :data:`LAUNCHES` holds one plain integer per kernel.  Each kernel wrapper
@@ -147,7 +148,7 @@ def _build() -> Dict[str, Path]:
     global _BUILD_SECONDS
     srcs = _sources()
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in srcs:
+    for src in sorted(srcs + list(_CSRC.glob("*.cuh"))):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     out_dir = _build_dir() / digest.hexdigest()[:16]

@@ -21,7 +21,7 @@ import torch
 from ...device import count_launch, kernel_library
 from .ref import key_kind
 
-__all__ = ["radix_sort_pass"]
+__all__ = ["radix_sort_pass", "digit_passes_run"]
 
 _INT_MAX = 2**31 - 1
 
@@ -35,6 +35,8 @@ def _lib() -> ctypes.CDLL:
         lib.repro_radix_sort_pass.argtypes = [p, i, i, ctypes.c_ulonglong, p,
                                               ll, p, p, p]
         lib.repro_radix_sort_pass.restype = ctypes.c_int
+        lib.repro_radix_sort_ran_offset.argtypes = []
+        lib.repro_radix_sort_ran_offset.restype = ll
         lib.repro_sort_error_string.argtypes = [i]
         lib.repro_sort_error_string.restype = ctypes.c_char_p
         lib._repro_bound = True
@@ -50,12 +52,8 @@ def _require_1d(t: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what}: expected a contiguous tensor")
 
 
-def radix_sort_pass(col: torch.Tensor,
-                    perm: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The rows of ``perm`` (the identity when None), stably sorted by the
-    key ``col[perm]``: an int64 permutation of ``col``'s rows.  ``col`` may
-    be bool, any integer or any float dtype; floats order as ``torch.sort``
-    does (-0.0 equal to +0.0, NaN last)."""
+def _sort_pass(col: torch.Tensor, perm: Optional[torch.Tensor]):
+    """Launch the pass; returns ``(permutation, scratch)``."""
     _require_1d(col, "col")
     kind, inf_bits = key_kind(col.dtype)
     n = col.shape[0]
@@ -70,7 +68,7 @@ def radix_sort_pass(col: torch.Tensor,
             raise ValueError("perm must be as long as col and on its device")
     out = torch.empty(n, dtype=torch.int64, device=dev)
     if n == 0:
-        return out
+        return out, None
     lib = _lib()
     es = col.element_size()
     scratch = torch.empty(lib.repro_radix_sort_scratch_bytes(n, es),
@@ -85,4 +83,28 @@ def radix_sort_pass(col: torch.Tensor,
         raise RuntimeError(f"radix_sort_pass kernel launch failed: CUDA error "
                            f"{rc} ({msg})")
     count_launch("radix_sort_pass")
-    return out
+    return out, scratch
+
+
+def radix_sort_pass(col: torch.Tensor,
+                    perm: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The rows of ``perm`` (the identity when None), stably sorted by the
+    key ``col[perm]``: an int64 permutation of ``col``'s rows.  ``col`` may
+    be bool, any integer or any float dtype; floats order as ``torch.sort``
+    does (-0.0 equal to +0.0, NaN last).  Only the 8-bit digits in which
+    the keys differ are sorted on; the kernel decides which on the device."""
+    return _sort_pass(col, perm)[0]
+
+
+def digit_passes_run(col: torch.Tensor,
+                     perm: Optional[torch.Tensor] = None):
+    """:func:`radix_sort_pass`, and the bit mask of the digit passes that
+    ran (bit p: the digit of bits 8p..8p+7).  Reading the mask back waits
+    for the device; tests and the smoke run hold it against
+    :func:`..ref.digit_mask_ref`."""
+    out, scratch = _sort_pass(col, perm)
+    if scratch is None:
+        return out, 0
+    off = _lib().repro_radix_sort_ran_offset()
+    word = scratch[off:off + 4].view(torch.int32)
+    return out, int(word.item())

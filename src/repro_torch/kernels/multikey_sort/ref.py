@@ -19,8 +19,9 @@ import torch
 
 from ..segment_join.ref import radix_rank_ref
 
-__all__ = ["key_kind", "order_bits", "radix_sort_pass_ref", "lex_passes",
-           "sort_perm_ref", "tile_sort_ref", "UNSIGNED", "SIGNED", "FLOAT"]
+__all__ = ["key_kind", "order_bits", "radix_sort_pass_ref", "digit_mask_ref",
+           "lex_passes", "sort_perm_ref", "tile_sort_ref", "UNSIGNED",
+           "SIGNED", "FLOAT"]
 
 #: key kinds of the kernel's interface
 UNSIGNED, SIGNED, FLOAT = 0, 1, 2
@@ -96,6 +97,21 @@ def radix_sort_pass_ref(col: torch.Tensor,
         moved_pos[dest] = pos
         bits, pos = moved_bits, moved_pos
     return pos if perm is None else perm[pos]
+
+
+def digit_mask_ref(col: torch.Tensor) -> int:
+    """Bit mask of the 8-bit digits in which the column's order bits are not
+    all equal (bit p: bits 8p..8p+7): the digit passes the kernel runs.
+    The order of the rows does not change it."""
+    if col.shape[0] == 0:
+        return 0
+    bits = order_bits(col)
+    mask = 0
+    for p in range(col.element_size()):
+        digit = (bits >> (_DIGIT_BITS * p)) & (_BUCKETS - 1)
+        if bool((digit != digit[0]).any()):
+            mask |= 1 << p
+    return mask
 
 
 PassFn = Callable[[torch.Tensor, Optional[torch.Tensor]], torch.Tensor]

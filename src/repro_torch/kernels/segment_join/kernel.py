@@ -27,9 +27,8 @@ from ...device import count_launch, kernel_library
 __all__ = ["segment_sum", "radix_rank", "join_table_build",
            "join_table_probe", "RADIX_TILE"]
 
-#: rows per tile of the radix rank kernel: a tile's histogram row is as many
-#: bytes as 4 x buckets, so at the main path's 16,385 buckets the histogram
-#: matrix stays near the size of the ids themselves (see the kernel's note)
+#: the TPU kernel's tile argument, kept in :func:`radix_rank`'s signature;
+#: the Hopper kernel sorts whole columns and does not read it
 RADIX_TILE = 16384
 
 _INT_MAX = 2**31 - 1
@@ -40,7 +39,9 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_repro_bound", False):
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.repro_segment_sum_f64.argtypes = [p, p, ll, p, i, p]
-        lib.repro_radix_rank.argtypes = [p, ll, i, i, p, p, p, p]
+        lib.repro_radix_rank_scratch_bytes.argtypes = [ll, i]
+        lib.repro_radix_rank_scratch_bytes.restype = ll
+        lib.repro_radix_rank.argtypes = [p, ll, i, p, p, p, p]
         lib.repro_join_table_build.argtypes = [p, p, ll, p, p, i, p]
         lib.repro_join_table_probe.argtypes = [p, ll, p, p, i, p, p, p]
         for fn in (lib.repro_segment_sum_f64, lib.repro_radix_rank,
@@ -118,23 +119,25 @@ def radix_rank(bucket_ids: torch.Tensor, num_buckets: int,
                tile: int = RADIX_TILE):
     """``(rank, counts)``: each row's stable rank within its bucket and the
     bucket histogram (int32); ids outside ``[0, num_buckets)`` get rank 0
-    and are not counted."""
+    and are not counted.  ``tile`` is checked and not used (the kernel sorts
+    the whole column)."""
     _require(bucket_ids, torch.int32, "bucket_ids")
     dev = bucket_ids.device
     B = _size(num_buckets, "num_buckets")
-    n = bucket_ids.shape[0]
+    _size(tile, "tile")
+    n = _size(bucket_ids.shape[0], "rows")
     if n == 0 or B == 0:
         return (torch.zeros(n, dtype=torch.int32, device=dev),
                 torch.zeros(B, dtype=torch.int32, device=dev))
-    tile = _size(tile, "tile")
-    num_tiles = -(-n // tile)
-    hist = torch.empty(num_tiles * B, dtype=torch.int32, device=dev)
+    lib = _lib()
+    scratch = torch.empty(lib.repro_radix_rank_scratch_bytes(n, B),
+                          dtype=torch.uint8, device=dev)
     counts = torch.empty(B, dtype=torch.int32, device=dev)
     rank = torch.empty(n, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        _launch("radix_rank", _lib().repro_radix_rank, bucket_ids.data_ptr(),
-                n, B, tile, hist.data_ptr(), counts.data_ptr(),
-                rank.data_ptr(), _stream(dev))
+        _launch("radix_rank", lib.repro_radix_rank, bucket_ids.data_ptr(), n,
+                B, scratch.data_ptr(), counts.data_ptr(), rank.data_ptr(),
+                _stream(dev))
     return rank, counts
 
 

@@ -54,14 +54,46 @@ def test_kernels_match_plain_versions(dev):
 
 
 def test_radix_rank_past_shared_memory(dev):
-    """More buckets than a block's shared memory holds: the rank pass works
-    on the global histogram row in place, and must still be stable."""
+    """More buckets than a block's shared memory holds (400 KB of int32
+    counts): three digit passes, and the ranks must still be stable."""
     from repro_torch.kernels.segment_join import kernel, ref
 
     rng = np.random.default_rng(8)
     nb = 100_000  # 400 KB of int32 per tile row
     ids = _t(rng.integers(0, nb, 70_000).astype(np.int32), dev)
     for g, w in zip(kernel.radix_rank(ids, nb), ref.radix_rank_ref(ids, nb)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("n,nb,ids", [
+    (2_097_152, 16_385, "sorted"),    # the join's build side
+    (2_097_152, 16_385, "random"),
+    (300_000, 16_385, "out_of_range"),
+    (1, 16_385, "random"),
+    (2049, 16_385, "random"),         # one row past a tile
+    (2049, 100_000, "out_of_range"),
+    (50_000, 256, "random"),          # a key of 9 bits: two passes
+    (50_000, 1, "out_of_range"),
+])
+def test_radix_rank_matches_plain_version_bit_for_bit(dev, n, nb, ids):
+    """The rank kernel against its plain version at the main path's bucket
+    count, past a tile, with ids outside ``[0, nb)``, and at bucket counts
+    on either side of a digit; one launch per call."""
+    from repro_torch import device as D
+    from repro_torch.kernels.segment_join import kernel, ref
+
+    rng = np.random.default_rng(n + nb)
+    if ids == "out_of_range":
+        a = rng.integers(-3, nb + 5, n)
+    else:
+        a = rng.integers(0, nb, n)
+        if ids == "sorted":
+            a = np.sort(a)
+    t = _t(a.astype(np.int32), dev)
+    D.reset_launch_counts()
+    got = kernel.radix_rank(t, nb)
+    assert D.launch_counts()["radix_rank"] == 1
+    for g, w in zip(got, ref.radix_rank_ref(t, nb)):
         assert torch.equal(g, w)
 
 
@@ -175,6 +207,97 @@ def test_radix_sort_pass_matches_plain_version(dev, dtype):
             assert torch.equal(got, ref.radix_sort_pass_ref(col, p)), \
                 (n, shape, p is None)
     assert D.launch_counts()["radix_sort_pass"] == 2 * (len(cases) - 1)
+
+
+def _digit_case(case, n, rng):
+    """Columns whose order bits vary in chosen digits only."""
+    if case == "all_equal":
+        return torch.full((n,), -123456789, dtype=torch.int64)
+    if case == "top_digit":
+        return torch.from_numpy(rng.integers(0, 100, n) << 56)
+    if case == "low_digit":
+        return torch.from_numpy((1234 << 8) + rng.integers(0, 256, n))
+    if case == "negative_only":   # raw top byte 0xff, 0x7f after the flip
+        return torch.from_numpy(-rng.integers(1, 1 << 20, n))
+    if case == "positive_only":   # raw top byte 0x00, 0x80 after the flip
+        return torch.from_numpy(rng.integers(0, 1 << 20, n))
+    if case == "mixed_sign":      # every digit varies
+        return torch.from_numpy(rng.integers(-1000, 1000, n))
+    if case == "o_custkey":
+        return torch.from_numpy(rng.integers(1, 150_001, n))
+    if case == "o_orderdate":
+        return torch.from_numpy(rng.integers(8035, 10_441, n).astype(np.int32))
+    if case == "signed_zeros":    # one key after -0.0 -> +0.0
+        return torch.from_numpy(rng.choice([0.0, -0.0], n))
+    if case == "nans":            # one key after NaN -> one quiet NaN
+        bits = rng.choice(np.array([0x7FC00000, 0xFFC00000, 0x7F800001,
+                                    0xFF812345], dtype=np.uint32), n)
+        return torch.from_numpy(bits.view(np.float32))
+    if case == "zeros_and_nans":
+        a = rng.choice([0.0, -0.0, np.nan, -np.nan], n).astype(np.float32)
+        return torch.from_numpy(a)
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize("case,mask", [
+    ("all_equal", 0), ("top_digit", 0x80), ("low_digit", 0x01),
+    ("negative_only", 0x07), ("positive_only", 0x07), ("mixed_sign", 0xFF),
+    ("o_custkey", 0x07), ("o_orderdate", 0x03), ("signed_zeros", 0),
+    ("nans", 0), ("zeros_and_nans", 0x0C),
+])
+@pytest.mark.parametrize("with_perm", [False, True])
+def test_radix_sort_pass_runs_only_varying_digits(dev, case, mask,
+                                                  with_perm):
+    """The pass sorts on the digits in which the keys differ and skips the
+    rest: the permutation equals the plain version's, and the passes that
+    ran are the digits :func:`digit_mask_ref` names."""
+    from repro_torch import device as D
+    from repro_torch.kernels.multikey_sort import kernel, ref
+
+    rng = np.random.default_rng(37)
+    n = 70_001
+    col = _digit_case(case, n, rng).to(dev)
+    perm = (torch.from_numpy(rng.permutation(n)).to(dev) if with_perm
+            else None)
+    assert ref.digit_mask_ref(col) == mask
+    D.reset_launch_counts()
+    got, ran = kernel.digit_passes_run(col, perm)
+    assert D.launch_counts()["radix_sort_pass"] == 1
+    assert ran == mask
+    assert torch.equal(got, ref.radix_sort_pass_ref(col, perm))
+
+
+def test_device_sort_waits_for_no_host_sync(dev):
+    """Which digits run is decided on the device: the sort of a Q-d-style
+    ORDER BY makes no synchronising torch call, and the query keeps its one
+    host sync (the final fetch)."""
+    from repro_torch.core import Session, col
+    from repro_torch.core.tensor_engine import sort_perm_device
+    from repro_torch.kernels.multikey_sort import ref
+
+    rng = np.random.default_rng(41)
+    n = 100_000
+    orders = {"orderkey": np.arange(n, dtype=np.int64),
+              "o_custkey": rng.integers(1, 150_001, n),
+              "o_orderdate": rng.integers(8035, 10_441, n).astype(np.int32)}
+    cols = (_t(orders["o_custkey"], dev), _t(orders["o_orderdate"], dev))
+    valid = cols[1] < 9204
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = sort_perm_device(cols, valid)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(got, ref.sort_perm_ref(cols, valid))
+    sess = Session(work_mem=1 << 20, policy="tensor", device="cuda")
+    sess.register("orders", orders)
+    q = (sess.table("orders").filter(col("o_orderdate") < 9204)
+         .sort("o_custkey", "o_orderdate")
+         .select("orderkey", "o_custkey", "o_orderdate"))
+    for _ in range(2):
+        res = q.collect()
+        assert res.total_host_syncs == 1
+        assert "sort" in [m.op for m in res.metrics]
 
 
 def test_sort_perm_on_card_matches_plain_and_library(dev):

@@ -180,3 +180,53 @@ def test_radix_pass_matches_a_stable_torch_sort(dtype):
     assert torch.equal(ref.radix_sort_pass_ref(col, perm), want)
     assert torch.equal(ref.radix_sort_pass_ref(col),
                        _lex_perm((col,), n, torch.device("cpu")))
+
+
+def _digit_case(case: str, n: int, rng) -> np.ndarray:
+    """Columns whose order bits differ in chosen 8-bit digits only."""
+    if case == "all_equal":
+        return np.full(n, -123456789, np.int64)
+    if case == "top_digit":
+        return rng.integers(0, 100, n) << 56
+    if case == "low_digit":
+        return (1234 << 8) + rng.integers(0, 256, n)
+    if case == "negative_only":  # raw top byte 0xff, 0x7f after the flip
+        return -rng.integers(1, 1 << 20, n)
+    if case == "mixed_sign":
+        return rng.integers(-1000, 1000, n)
+    if case == "o_custkey":
+        return rng.integers(1, 150_001, n)
+    if case == "signed_zeros":
+        return rng.choice([0.0, -0.0], n)
+    if case == "zeros_and_nans":
+        return rng.choice([0.0, -0.0, np.nan, -np.nan], n).astype(np.float32)
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize("case,mask", [
+    ("all_equal", 0), ("top_digit", 0x80), ("low_digit", 0x01),
+    ("negative_only", 0x07), ("mixed_sign", 0xFF), ("o_custkey", 0x07),
+    ("signed_zeros", 0), ("zeros_and_nans", 0x0C),
+])
+def test_columns_varying_in_few_digits_match_reference(case, mask):
+    """The digits the card's pass sorts on (``digit_mask_ref``: those in
+    which the order bits differ) for columns that vary in chosen digits
+    only, and the port's permutation on them against the reference
+    engine's, with and without a validity mask."""
+    rng = np.random.default_rng(19)
+    n = 3000
+    col = _digit_case(case, n, rng)
+    assert ref.digit_mask_ref(_t(col)) == mask
+    valid = rng.random(n) < 0.5
+    for v in (None, valid):
+        np.testing.assert_array_equal(_port_perm([col], v),
+                                      _ref_perm([col], v))
+
+
+@pytest.mark.parametrize("fn", ["radix_sort_pass", "digit_passes_run"])
+def test_sort_kernel_wrappers_refuse_cpu_tensors(fn):
+    """The CUDA wrappers never fall back: a CPU tensor is refused."""
+    from repro_torch.kernels.multikey_sort import kernel
+
+    with pytest.raises(ValueError, match="CUDA"):
+        getattr(kernel, fn)(torch.zeros(4, dtype=torch.int64))
