@@ -2,7 +2,10 @@
 """Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
 
 Run from the root of a checkout:  ``python3 chip_smoke.py [--seed 0]
-[--profile]``.
+[--profile]``.  ``--only moe-dispatch`` or ``--only lm`` runs one phase
+alone (the dispatch call's times, or phase 6) and ``--tree DIR`` drives
+another checkout's package with it: to compare two commits, run each in
+its own process, in turns on one card (parent, change, change, parent).
 
 Phases (any mismatch or exception ends the run with a non-zero exit code):
 
@@ -15,8 +18,13 @@ Phases (any mismatch or exception ends the run with a non-zero exit code):
    library call that computes the same function, beside the least time the
    card could take for the bytes moved; ``radix_rank`` at the join's build
    and probe sides, ``radix_sort_pass`` with the digit passes that ran and
-   on columns that vary in chosen digits only, and the MoE kernels also at
-   the decode shape;
+   on columns that vary in chosen digits only, ``segment_sum`` bit for bit
+   against its plain version on the CPU on non-integer values (sorted,
+   with one segment holding half the rows, and unsorted) and on ones (the
+   counts), float32 flash
+   attention against SDPA, and the MoE kernels also at the decode shape
+   (device time from the profiler's kernel times, host time a call, and
+   the library call's);
 3. the main path, ``repro_torch.core.Session(policy="tensor",
    device="cuda")``, on a TPC-H SF1 deployment made with numpy from
    ``--seed``: (Q-a) lineitem ⋈ orders → filter → sort → sum, (Q-b) the same
@@ -80,6 +88,10 @@ H100_SCALAR_OPS_PER_S = 67e12
 # dense bf16 tensor-core peak (H100 SXM data sheet): the rate of the
 # attention products
 H100_BF16_OPS_PER_S = 989e12
+# dense TF32 tensor-core peak (H100 SXM data sheet, 494.7 TFLOP/s without
+# sparsity): the float32 attention kernel's 3xTF32 products run three TF32
+# products for each float32 one
+H100_TF32_OPS_PER_S = 494.7e12
 LM_ARCH = "phi3.5-moe-42b-a6.6b"
 LM_LAYERS = 24               # of 32: the bf16 weights fit one 80 GB card
 PREFILL_BATCH, PREFILL_LEN = 2, 4096
@@ -240,6 +252,56 @@ def time_ms(fn, reps: int = 20) -> float:
     return statistics.median(times)
 
 
+DECODE_CALLS = 200
+
+
+def device_ms_per_call(fn, kernel_name, calls: int = DECODE_CALLS):
+    """The device time of one call of ``fn`` and the kernels it launches:
+    torch.profiler's kernel times over ``calls`` calls issued back to back,
+    divided by ``calls`` (CUDA events around them would time the host's
+    enqueue when the host is the slower).  With ``kernel_name``, its launch
+    counter must rise once a call.  Fails when the trace holds no device
+    time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import device as D
+
+    fn()
+    torch.cuda.synchronize()
+    before = D.launch_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    if kernel_name is not None:
+        launched = D.launch_counts()[kernel_name] - before[kernel_name]
+        if launched != calls:
+            fail(f"{kernel_name}: {launched} launches in {calls} calls")
+    kernels = [ev for ev in prof.events()
+               if ev.device_type == torch.autograd.DeviceType.CUDA]
+    total_us = sum(ev.device_time_total for ev in kernels)
+    if not kernels or total_us <= 0:
+        fail("the profiler's trace holds no device time")
+    return total_us / calls / 1e3, len(kernels) / calls
+
+
+def host_ms_per_call(fn, calls: int = DECODE_CALLS) -> float:
+    """The host's time to issue one call of ``fn``: ``calls`` calls back to
+    back on the host clock, without a synchronise between them."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = (time.perf_counter() - t0) / calls * 1e3
+    torch.cuda.synchronize()
+    return host
+
+
 def bound(nbytes: int, ops: int, ops_per_s: float = H100_SCALAR_OPS_PER_S):
     """Least time for the work: bytes over the memory rate vs operations
     over the peak rate, whichever is larger."""
@@ -391,7 +453,14 @@ def kernel_phase(orders, lineitem, dev):
                  "library_ms": time_ms(lib_probe),
                  "shape": f"n={n}, slots={dpad}, sectors read={sectors}"})
 
-    # segment_sum: the GROUP BY's sorted segment ids and float64 values
+    # segment_sum: the GROUP BY's sorted segment ids (l_suppkey's groups
+    # over lineitem, as many segments as rows), with non-integer float64
+    # values from --seed so that the order of the adds shows in the bits;
+    # then one segment holding half the rows, the same rows unsorted (the
+    # join aggregate's case), and all-ones values (the GROUP BY's counts).
+    # Each is held bit for bit against the
+    # plain version on the CPU (index_add_ there adds in row order; on the
+    # card it is atomics, so its card time is only timed)
     keys = torch.from_numpy(lineitem["l_suppkey"]).to(dev)
     order = torch.argsort(keys, stable=True)
     sk = keys[order]
@@ -399,30 +468,55 @@ def kernel_phase(orders, lineitem, dev):
     newseg[1:] = sk[1:] != sk[:-1]
     seg = (torch.cumsum(newseg.to(torch.int32), 0, dtype=torch.int32)
            - 1).contiguous()
-    vals = torch.from_numpy(lineitem["l_extendedprice"]).to(dev).to(
-        torch.float64)[order].contiguous()
     S = seg.numel()
-    err = 0.0
-    for v in (vals, torch.ones_like(vals)):
-        got = K.segment_sum(seg, v, S)
-        want = ref.segment_sum_ref(seg, v, S)
-        if not torch.allclose(got, want, rtol=1e-12, atol=0.0):
-            fail("segment_sum disagrees with its plain version (rtol 1e-12)")
-        err = max(err, float((got - want).abs().max()))
+    groups = int(seg[-1]) + 1
+    gen = torch.Generator(device=dev).manual_seed(7)
+    vals = (torch.from_numpy(lineitem["l_extendedprice"]).to(dev).to(
+        torch.float64)[order] / 100.0 * (1.0 + 1e-3 * torch.randn(
+            S, generator=gen, device=dev, dtype=torch.float64))).contiguous()
+    skew = seg.clone()
+    skew[S // 4: S // 4 + S // 2] = skew[S // 4]
+    skew = torch.sort(skew).values.contiguous()
+    shuffle = torch.randperm(S, generator=gen, device=dev)
+    cases = {"sorted": (seg, vals, True),
+             "skewed": (skew, vals, True),
+             "unsorted": (seg[shuffle].contiguous(),
+                          vals[shuffle].contiguous(), False),
+             "count": (seg, torch.ones_like(vals), True)}  # Q-c's counts
+    sum_ms = {}
+    sum_err = 0.0
+    for what, (ids, v, ids_sorted) in cases.items():
+        want = ref.segment_sum_ref(ids.cpu(), v.cpu(), S)
+        for _ in range(3):  # the same bits run after run
+            got = K.segment_sum(ids, v, S, ids_sorted).cpu()
+            sum_err = max(sum_err, float((got - want).abs().max()))
+            if not torch.equal(got.view(torch.int64), want.view(torch.int64)):
+                fail(f"segment_sum ({what}) differs from its plain version "
+                     f"on the CPU in {int((got != want).sum())} segments")
+        sum_ms[what] = time_ms(lambda: K.segment_sum(ids, v, S, ids_sorted),
+                               20 if what != "skewed" else 5)
+        print(f"segment_sum {what}: n={S}, segments={S} ({groups} groups"
+              f"{', one of them half the rows' if what == 'skewed' else ''}"
+              f"{', values all 1' if what == 'count' else ''}), "
+              f"ids_sorted={ids_sorted}: {sum_ms[what]:.4f} ms, equal bit "
+              f"for bit to the plain version on the CPU", flush=True)
     seg_l = seg.long()
     lib_out = torch.zeros(S, dtype=torch.float64, device=dev)
     t_b, by = bound(S * 12 + S * 8, S)
     rows.append({"name": "segment_sum", "route": "cuda",
                  "source": "src/repro_torch/csrc/segment_join.cu",
                  "replaces": "src/repro/kernels/segment_join/kernel.py:59",
-                 "max_abs_err": err,
-                 "ms": time_ms(lambda: K.segment_sum(seg, vals, S)),
+                 "max_abs_err": sum_err, "ms": sum_ms["sorted"],
                  "plain_ms": time_ms(lambda: ref.segment_sum_ref(seg, vals,
                                                                  S)),
                  "bound_ms": t_b, "bound_by": by,
                  "library_ms": time_ms(
                      lambda: lib_out.zero_().index_add_(0, seg_l, vals)),
-                 "shape": f"n={S}, segments={S}"})
+                 "skewed_ms": sum_ms["skewed"],
+                 "unsorted_ms": sum_ms["unsorted"],
+                 "shape": f"n={S}, segments={S} ({groups} groups), sorted "
+                          f"ids (skewed: {sum_ms['skewed']:.4f} ms, "
+                          f"unsorted: {sum_ms['unsorted']:.4f} ms)"})
     return rows
 
 
@@ -565,7 +659,7 @@ def lm_kernel_phase(dev, seed: int):
     """The LM path's kernels at the shapes of phase 6's prefill: flash
     attention over 2 x 4096 tokens of Phi-3.5-MoE's heads (32 query, 8 kv,
     head dim 128, causal) in bf16 (the tensor-core kernel, phase 6's) and
-    in float32 (the SIMT kernel, phase 7's), and one routing slot's
+    in float32 (the 3xTF32 kernel, phase 7's), and one routing slot's
     dispatch and combine over its 8192 tokens (d 4096, 16 experts,
     capacity 1280), with slots from a real top-2 routing.  Tolerances:
     attention in float32 within 2e-5 (the reference tests'); in bf16 each
@@ -592,17 +686,20 @@ def lm_kernel_phase(dev, seed: int):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
     rows = []
-    # flash attention at the prefill's shape: bf16 on the tensor-core
-    # kernel (the prefill's), then the same inputs in float32 on the SIMT
-    # kernel; each against its plain version and SDPA in its dtype
+    # flash attention at the prefill's shape: bf16 on the wgmma kernel (the
+    # prefill's), then the same inputs in float32 on the 3xTF32 kernel;
+    # each against its plain version and SDPA in its dtype
     B, S, H, KH, Dh = PREFILL_BATCH, PREFILL_LEN, 32, 8, 128
     q, k, v = randn(B, S, H, Dh), randn(B, S, KH, Dh), randn(B, S, KH, Dh)
     scale = Dh ** -0.5
     pairs = B * H * S * (S + 1) // 2
+    # float32: the least time is the smaller of the flops at the CUDA
+    # cores' float32 rate and three times the flops at the TF32 rate
     routes = (
         ("flash_attention", torch.bfloat16, H100_BF16_OPS_PER_S,
          "src/repro_torch/csrc/flash_attention_sm90.cu"),
-        ("flash_attention_f32", torch.float32, H100_SCALAR_OPS_PER_S,
+        ("flash_attention_f32", torch.float32,
+         max(H100_SCALAR_OPS_PER_S, H100_TF32_OPS_PER_S / 3),
          "src/repro_torch/csrc/flash_attention.cu"),
     )
     for name, dtype, peak, source in routes:
@@ -650,7 +747,10 @@ def lm_kernel_phase(dev, seed: int):
                  FR.flash_attention_ref(q, k, v, **kw),
                  f"D=256, window=512, cap=50, {dtype}")
 
-    # dispatch and combine on one routing slot of a real top-2 routing
+    # dispatch and combine on one routing slot of a real top-2 routing; the
+    # dispatch reads the routing's column views as the layer body hands
+    # them over (int64 experts, int32 slots, stride 2), the combine int32
+    # copies (ops.combine makes them)
     cfg = get_config(LM_ARCH)
     T, d, E = PREFILL_BATCH * PREFILL_LEN, cfg.d_model, cfg.num_experts
     C = capacity_per_expert(T, E, cfg.experts_per_token, cfg.capacity_factor)
@@ -658,14 +758,21 @@ def lm_kernel_phase(dev, seed: int):
     router = randn(d, E, dtype=torch.float32) / d ** 0.5
     topk_idx, topk_w, _ = _route({"router": router}, x, cfg)
     slot = MO.expert_slots(topk_idx, E)
-    eidx = topk_idx[:, 0].to(torch.int32).contiguous()
-    sl = slot[:, 0].contiguous()
+    e_view, s_view = topk_idx[:, 0], slot[:, 0]
+    eidx = e_view.to(torch.int32).contiguous()
+    sl = s_view.contiguous()
     w = topk_w[:, 0].contiguous()
-    buf = MK.moe_dispatch(x, eidx, sl, E, C)
+    buf = MK.moe_dispatch(x, e_view, s_view, E, C)
     err = float((buf.float() - MR.dispatch_ref(x, eidx, sl, E, C).float())
                 .abs().max())
     if err != 0.0:
         fail(f"moe_dispatch disagrees with its plain version: {err}")
+    both = MK.moe_dispatch(x, topk_idx[:, 1], slot[:, 1], E, C,
+                           into=buf.clone())
+    if not torch.equal(both, buf + MR.dispatch_ref(x, topk_idx[:, 1],
+                                                   slot[:, 1], E, C)):
+        fail("moe_dispatch adding the second slot into the first is not "
+             "buf + b")
     keep = sl < C
     kept = int(keep.sum())
     rows_all = torch.where(keep, eidx.long() * C + sl.long(), E * C)
@@ -679,13 +786,14 @@ def lm_kernel_phase(dev, seed: int):
                  "source": "src/repro_torch/csrc/moe_dispatch.cu",
                  "replaces": "src/repro/kernels/moe_dispatch/kernel.py:53",
                  "max_abs_err": err,
-                 "ms": time_ms(lambda: MK.moe_dispatch(x, eidx, sl, E, C)),
-                 "plain_ms": time_ms(lambda: MR.dispatch_ref(x, eidx, sl, E,
-                                                             C)),
+                 "ms": time_ms(lambda: MK.moe_dispatch(x, e_view, s_view, E,
+                                                       C)),
+                 "plain_ms": time_ms(lambda: MR.dispatch_ref(x, e_view,
+                                                             s_view, E, C)),
                  "bound_ms": t_b, "bound_by": by,
                  "library_ms": time_ms(lib_dispatch),
                  "shape": f"T={T}, d={d}, E={E}, C={C}, bf16, {kept} "
-                          f"routed rows"})
+                          f"routed rows, routing column views"})
     y = MK.moe_combine(buf, eidx, sl, w)
     err = float((y.float() - MR.combine_ref(buf, eidx, sl, w).float())
                 .abs().max())
@@ -714,31 +822,67 @@ def lm_kernel_phase(dev, seed: int):
     x4 = randn(T4, d)
     idx4, w4, _ = _route({"router": router}, x4, cfg)
     slot4 = MO.expert_slots(idx4, E)
-    e4 = idx4[:, 0].to(torch.int32).contiguous()
-    s4 = slot4[:, 0].contiguous()
+    ev4, sv4 = idx4[:, 0], slot4[:, 0]
+    e4 = ev4.to(torch.int32).contiguous()
+    s4 = sv4.contiguous()
     w4 = w4[:, 0].contiguous()
-    buf4 = MK.moe_dispatch(x4, e4, s4, E, C4)
+    buf4 = MK.moe_dispatch(x4, ev4, sv4, E, C4)
     y4 = MK.moe_combine(buf4, e4, s4, w4)
     if not (torch.equal(buf4, MR.dispatch_ref(x4, e4, s4, E, C4))
             and torch.equal(y4, MR.combine_ref(buf4, e4, s4, w4))):
         fail("moe_dispatch/moe_combine disagree with their plain versions "
              "at decode shape")
     kept4 = int((s4 < C4).sum())
+    keep4 = s4 < C4
+    rows4 = torch.where(keep4, e4.long() * C4 + s4.long(), E * C4)
+    lib4 = torch.zeros((E * C4 + 1, d), dtype=x4.dtype, device=dev)
+    flat4 = buf4.reshape(E * C4, d)
+    rows4c = rows4.clamp_max(E * C4 - 1)
+    w4b = w4.to(buf4.dtype)[:, None]
     decode = {
         "moe_dispatch": (
-            time_ms(lambda: MK.moe_dispatch(x4, e4, s4, E, C4)),
+            lambda: MK.moe_dispatch(x4, ev4, sv4, E, C4),
+            lambda: lib4.zero_().index_put_((rows4,), x4, accumulate=True),
             bound(kept4 * d * 2 + T4 * 8 + E * C4 * d * 2, kept4 * d)),
         "moe_combine": (
-            time_ms(lambda: MK.moe_combine(buf4, e4, s4, w4)),
+            lambda: MK.moe_combine(buf4, e4, s4, w4),
+            lambda: torch.index_select(flat4, 0, rows4c) * w4b,
             bound(kept4 * d * 2 + T4 * 12 + T4 * d * 2, T4 * d)),
     }
+    # host times first, for every call: the profiler's tracing is not
+    # running then
+    host = {name: (host_ms_per_call(call), host_ms_per_call(library))
+            for name, (call, library, _) in decode.items()}
     for r in rows:
         if r["name"] in decode:
-            ms, (t_b, by) = decode[r["name"]]
-            r.update(decode_ms=ms, decode_bound_ms=t_b)
+            call, library, (t_b, by) = decode[r["name"]]
+            host_ms, lib_host_ms = host[r["name"]]
+            dev_ms, n_kernels = device_ms_per_call(call, r["name"])
+            lib_dev_ms, _ = device_ms_per_call(library, None)
+            r.update(decode_device_ms=dev_ms, decode_host_ms=host_ms,
+                     decode_library_device_ms=lib_dev_ms,
+                     decode_library_host_ms=lib_host_ms,
+                     decode_kernels_per_call=n_kernels,
+                     decode_bound_ms=t_b)
             print(f"{r['name']} at decode shape (T={T4}, d={d}, E={E}, "
-                  f"C={C4}, bf16, {kept4} routed rows): {ms:.4f} ms, bound "
+                  f"C={C4}, bf16, {kept4} routed rows): device "
+                  f"{dev_ms:.6f} ms a call ({n_kernels} kernels), host "
+                  f"{host_ms:.4f} ms a call; library device "
+                  f"{lib_dev_ms:.6f} ms, host {lib_host_ms:.4f} ms; bound "
                   f"{t_b:.6f} ms by {by}", flush=True)
+    # the prefill shape's device time, from the profiler (CUDA events around
+    # one call also time the host's enqueue while the card waits)
+    for r in rows:
+        if r["name"] == "moe_dispatch":
+            r["device_ms"], r["kernels_per_call"] = device_ms_per_call(
+                lambda: MK.moe_dispatch(x, e_view, s_view, E, C),
+                "moe_dispatch", 20)
+            r["library_device_ms"], _ = device_ms_per_call(lib_dispatch,
+                                                           None, 20)
+            print(f"moe_dispatch at the prefill shape: device "
+                  f"{r['device_ms']:.4f} ms a call ({r['kernels_per_call']} "
+                  f"kernels), index_put_ device "
+                  f"{r['library_device_ms']:.4f} ms", flush=True)
     # duplicate and dropped slots, float32: exact
     xs = randn(2000, 256, dtype=torch.float32)
     es = torch.randint(-1, 5, (2000,), generator=gen, device=dev,
@@ -749,6 +893,47 @@ def lm_kernel_phase(dev, seed: int):
                        MR.dispatch_ref(xs, es, ss, 4, 32)):
         fail("moe_dispatch with duplicate slots (float32) is not exact")
     return rows
+
+
+def dispatch_calls(dev, seed: int) -> dict:
+    """``--only moe-dispatch``: the layer body's dispatch call,
+    ``ops.dispatch(x, topk_idx[:, 0], slot[:, 0], E, C)`` on a real top-2
+    routing, at phase 6's decode shape (4 tokens, C 16) and prefill shape
+    (8192 tokens, C 1280), d 4096, E 16, bf16: the device time and kernels
+    a call (profiler), the host time a call, and CUDA events around one
+    call; exact against the plain version.  It calls only what every slice
+    of the port offers, so that two checkouts can be timed in turns."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.moe_dispatch import ops as MO
+    from repro_torch.kernels.moe_dispatch import ref as MR
+    from repro_torch.models.moe import _route, capacity_per_expert
+
+    cfg = get_config(LM_ARCH)
+    d, E, k = cfg.d_model, cfg.num_experts, cfg.experts_per_token
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    router = torch.randn((d, E), generator=gen, device=dev) / d ** 0.5
+    out = {}
+    for shape, T, calls in (("decode", SERVE_BATCH, DECODE_CALLS),
+                            ("prefill", PREFILL_BATCH * PREFILL_LEN, 20)):
+        C = capacity_per_expert(T, E, k, cfg.capacity_factor)
+        x = torch.randn((T, d), generator=gen, device=dev).to(torch.bfloat16)
+        topk_idx, _, _ = _route({"router": router}, x, cfg)
+        slot = MO.expert_slots(topk_idx, E)
+
+        def call():
+            return MO.dispatch(x, topk_idx[:, 0], slot[:, 0], E, C)
+
+        if not torch.equal(call(), MR.dispatch_ref(x, topk_idx[:, 0],
+                                                   slot[:, 0], E, C)):
+            fail(f"moe_dispatch at the {shape} shape is not exact")
+        host_ms = host_ms_per_call(call, calls)  # before any profiling
+        dev_ms, n_kernels = device_ms_per_call(call, "moe_dispatch", calls)
+        out[shape] = {"T": T, "C": C, "device_ms": dev_ms,
+                      "kernels_per_call": n_kernels, "host_ms": host_ms,
+                      "events_ms": time_ms(call)}
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -946,7 +1131,8 @@ def print_profile(label: str, prof, wall_us: float, top: int = 12) -> None:
     busy = sum(r[0] for r in rows)
     print(f"profile {label}: wall {wall_us:.0f} us, device busy "
           f"{busy:.0f} us ({100 * busy / wall_us:.1f}%), idle "
-          f"{100 - 100 * busy / wall_us:.1f}%", flush=True)
+          f"{100 - 100 * busy / wall_us:.1f}%, "
+          f"{sum(r[1] for r in rows)} device events", flush=True)
     for dev_us, count, key in rows[:top]:
         print(f"  {dev_us:10.1f} us  x{count:<5d} {key[:90]}", flush=True)
 
@@ -1151,9 +1337,22 @@ def main() -> None:
                     help="also trace one warm run of each query, one warm "
                          "LM prefill and 12 decode steps with "
                          "torch.profiler and print where the time goes")
+    ap.add_argument("--only", choices=("moe-dispatch", "lm"),
+                    help="run one phase alone and print its numbers as one "
+                         "JSON line, to compare two checkouts in turns on "
+                         "one card: moe-dispatch times the layer body's "
+                         "dispatch call at the decode and prefill shapes, "
+                         "lm is phase 6 (with --profile, its trace)")
+    ap.add_argument("--tree", type=Path,
+                    help="with --only: drive the repro_torch package of "
+                         "this checkout (e.g. a parent commit unpacked with "
+                         "git archive) instead of this script's own")
     args = ap.parse_args()
+    if args.tree is not None and args.only is None:
+        fail("--tree needs --only")
 
-    root = Path(__file__).resolve().parent
+    root = (args.tree.resolve() if args.tree is not None
+            else Path(__file__).resolve().parent)
     if not (root / "src" / "repro_torch" / "device.py").is_file():
         fail("run from the root of a checkout: src/repro_torch is missing")
     try:
@@ -1183,6 +1382,8 @@ def main() -> None:
     t0 = time.perf_counter()
     libs = ("segment_join", "multikey_sort", "flash_attention",
             "flash_attention_sm90", "moe_dispatch")
+    if args.only == "moe-dispatch":
+        libs = ("moe_dispatch",)
     for lib in libs:  # the first call builds every source, in parallel
         D.kernel_library(lib)
     print(f"kernel build ({', '.join(f'{x}.cu' for x in libs)}): "
@@ -1192,6 +1393,14 @@ def main() -> None:
     # float32 matmuls in full precision for the card/CPU comparisons
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.only is not None:
+        if args.only == "moe-dispatch":
+            res = dispatch_calls(dev, args.seed)
+        else:
+            res, _ = lm_serving(args.seed, args.profile)
+        print(json.dumps({"only": args.only, "tree": str(root), **res}))
+        print(card_line)
+        return
 
     t0 = time.perf_counter()
     orders, lineitem = tpch(1.0, args.seed)

@@ -3,9 +3,9 @@
 //
 // Replaces src/repro/kernels/flash_attention/kernel.py::flash_attention_pallas
 // together with the epilogue of flash_attention/ops.py (acc / max(l, 1e-30),
-// cast to q's dtype), for bfloat16 q/k/v.  float32 inputs keep the SIMT
+// cast to q's dtype), for bfloat16 q/k/v.  float32 inputs go to the 3xTF32
 // kernel of csrc/flash_attention.cu; kernels/flash_attention/kernel.py picks
-// the kernel by dtype.  The contract is the SIMT kernel's: GQA reads kv head
+// the kernel by dtype.  The contract is the float32 kernel's: GQA reads kv head
 // h / (H / KH); q_offset places query row i at position q_offset + i; the
 // scale comes before the tanh soft-cap; masked scores are -1e30 (a row that
 // sees no key averages V), keys past Sk are -inf (p = 0); P is rounded to
@@ -45,7 +45,7 @@
 //     a tile is unrolled and the wgmma batches hold no other instructions;
 //   * tiles with no key visible to any row of the CTA are skipped unless
 //     some row sees no key at all (that row's answer, the mean of V, needs
-//     every tile): exact, as in the SIMT kernel.  The per-element mask runs
+//     every tile): exact, as in the float32 kernel.  The per-element mask runs
 //     only on tiles that cross the diagonal, the window's edge or Sk;
 //   * the epilogue divides by l and stores bf16 pairs straight from the
 //     fragment; rows past Sq and columns past Dv are not stored.

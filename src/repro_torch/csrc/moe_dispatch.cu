@@ -9,21 +9,31 @@
 // rows directly and do only the work the routing asks for.
 //
 // Dispatch, buf[e, c, :] = sum_t [eidx_t == e and slot_t == c] x[t, :]
-// (assignments with e outside [0, E) or c outside [0, C) are dropped):
-//   1. count: one thread per token adds one to its row's count (integer
-//      atomics, so the counts are exact);
-//   2. scan: one block turns the E * C counts into row starts;
-//   3. place: one thread per token appends its index to its row's list (an
-//      atomic cursor, so the order within a row is not fixed yet);
-//   4. gather: one block per (e, c) row first sorts the row's token list
-//      ascending (rows hold at most one token on the model path, where the
-//      slot is the rank within the expert; duplicate slots are allowed by
-//      the contract and sorted by one thread), then sums the listed x rows
-//      in float32 in ascending t, and writes the row in x's dtype (zeros
-//      for an empty row).  The sum's order is fixed, so the result is the
-//      same on every run.
+// (assignments with e outside [0, E) or c outside [0, C) are dropped), each
+// row summed in float32 in ascending t and written in x's dtype; with a
+// running buffer prev it writes round(prev + round(sum)) instead, the
+// rounding of the layer body's `buf + b` over two routing slots.  The
+// routing columns are read as they come: int32 or int64, any element
+// stride (the [T, k] routing's column views), so no conversion runs first.
+// One warp owns one (e, c) row and finds its tokens:
+//   * up to kScanTokens tokens (every decode step): the warp scans the
+//     routing with one ballot per 32 tokens.  One launch, no workspace.
+//   * more (the prefill): dispatch_count_kernel first adds one to the
+//     row's count and records the token, in the row's pair (count, token)
+//     of an int32 workspace whose counts are zero before the call; the
+//     row kernel reads and re-zeroes its row's count.  Two launches, no
+//     memset, no allocation.  A count and a token never share a place at
+//     any E * C, so a token left by an earlier, smaller call is never read
+//     as a count.
+// A row with no token is zeros (prev + 0), a row with one token is that x
+// row (0 + x), both moved 16 bytes a lane (a scalar tail when d is not a
+// whole number of 16-byte vectors, or a row is not 16-byte aligned); a row
+// with several tokens (duplicate slots: allowed by the contract, never
+// made by the model, whose slot is the rank within the expert) sums them
+// in ascending t, found by scanning the routing again.  No atomics touch
+// the data, so the result is the same on every run.
 // Bound: bytes -- the routed x rows are read once and the whole [E, C, d]
-// buffer is written once.
+// buffer is written once (and read once with prev).
 //
 // Combine, y[t, :] = w_t * buf[eidx_t, slot_t, :], or 0 when the assignment
 // is dropped: for one routing slot at most one expert matches, so the
@@ -34,9 +44,9 @@
 //
 // The exported functions have a plain C interface (raw device pointers, the
 // caller's stream), launch on that stream, never synchronise and allocate
-// nothing: the dispatch wrapper hands over one int32 scratch buffer of
-// repro_moe_dispatch_scratch_ints(T, E, C) entries.  They return
-// cudaGetLastError().
+// nothing: the dispatch wrapper keeps the workspace of
+// repro_moe_dispatch_workspace_ints(T, E, C) entries per device, stream
+// and host thread.  They return cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -45,7 +55,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kScanThreads = 1024;
 
 template <typename T> __device__ __forceinline__ float to_f(T x);
 template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
@@ -58,6 +67,9 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16_rn(x);
 }
 
+constexpr int kRowThreads = 256;            // 8 warps, one row each
+constexpr int kScanTokens = 256;            // the scan's largest T
+
 // The assignment's row e * C + c, or -1 when it is dropped.
 __device__ __forceinline__ long long row_of(const int32_t* eidx,
                                             const int32_t* slot, int t,
@@ -67,95 +79,205 @@ __device__ __forceinline__ long long row_of(const int32_t* eidx,
   return static_cast<long long>(e) * C + c;
 }
 
-__global__ void count_kernel(const int32_t* __restrict__ eidx,
-                             const int32_t* __restrict__ slot, int T, int E,
-                             int C, int32_t* __restrict__ counts) {
+// One routing slot's (expert, slot) columns: int32 or int64, element
+// strides.
+struct Route {
+  const void* eidx;
+  const void* slot;
+  long long e_stride, s_stride;
+  int e_is64, s_is64;
+  int E, C;
+  __device__ __forceinline__ long long row(long long t) const {
+    const long long e = e_is64
+        ? static_cast<const long long*>(eidx)[t * e_stride]
+        : static_cast<const int32_t*>(eidx)[t * e_stride];
+    const long long c = s_is64
+        ? static_cast<const long long*>(slot)[t * s_stride]
+        : static_cast<const int32_t*>(slot)[t * s_stride];
+    if (e < 0 || e >= E || c < 0 || c >= C) return -1;
+    return e * C + c;
+  }
+};
+
+// ws[2 row] counts the row's tokens, ws[2 row + 1] holds one of them (read
+// only when the count is 1)
+__global__ void dispatch_count_kernel(Route r, int T, int32_t* __restrict__ ws) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= T) return;
-  const long long row = row_of(eidx, slot, t, E, C);
-  if (row >= 0) atomicAdd(&counts[row], 1);
-}
-
-// Exclusive scan of counts[0, rows) into starts and cursor; one block.
-__global__ void scan_kernel(const int32_t* __restrict__ counts, int rows,
-                            int32_t* __restrict__ starts,
-                            int32_t* __restrict__ cursor) {
-  __shared__ int32_t warp_sums[kScanThreads / 32];
-  __shared__ int32_t carry;
-  if (threadIdx.x == 0) carry = 0;
-  __syncthreads();
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  for (int base = 0; base < rows; base += kScanThreads) {
-    const int i = base + threadIdx.x;
-    const int32_t v = i < rows ? counts[i] : 0;
-    int32_t incl = v;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const int32_t n = __shfl_up_sync(0xffffffffu, incl, off);
-      if (lane >= off) incl += n;
-    }
-    if (lane == 31) warp_sums[warp] = incl;
-    __syncthreads();
-    if (warp == 0) {
-      int32_t w = warp_sums[lane];
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const int32_t n = __shfl_up_sync(0xffffffffu, w, off);
-        if (lane >= off) w += n;
-      }
-      warp_sums[lane] = w;  // inclusive over warps
-    }
-    __syncthreads();
-    const int32_t before = carry + (warp ? warp_sums[warp - 1] : 0) + incl - v;
-    if (i < rows) {
-      starts[i] = before;
-      cursor[i] = before;
-    }
-    __syncthreads();
-    if (threadIdx.x == kScanThreads - 1) carry = before + v;
-    __syncthreads();
+  const long long row = r.row(t);
+  if (row >= 0) {
+    atomicAdd(&ws[2 * row], 1);
+    ws[2 * row + 1] = t;
   }
 }
 
-__global__ void place_kernel(const int32_t* __restrict__ eidx,
-                             const int32_t* __restrict__ slot, int T, int E,
-                             int C, int32_t* __restrict__ cursor,
-                             int32_t* __restrict__ list) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= T) return;
-  const long long row = row_of(eidx, slot, t, E, C);
-  if (row >= 0) list[atomicAdd(&cursor[row], 1)] = t;
-}
-
+// sum rounded to T, then (add) prev + that in float32, rounded again: one
+// element of the output row
 template <typename T>
-__global__ void gather_kernel(const T* __restrict__ x, int d,
-                              const int32_t* __restrict__ counts,
-                              const int32_t* __restrict__ starts,
-                              int32_t* __restrict__ list,
-                              T* __restrict__ buf) {
-  const long long row = blockIdx.x;
-  const int n = counts[row];
-  int32_t* mine = list + starts[row];
-  if (n > 1) {
-    if (threadIdx.x == 0) {  // insertion sort: rows hold few tokens
-      for (int i = 1; i < n; ++i) {
-        const int32_t key = mine[i];
-        int j = i - 1;
-        while (j >= 0 && mine[j] > key) {
-          mine[j + 1] = mine[j];
-          --j;
+__device__ __forceinline__ T finish(float sum, bool add, float prev) {
+  const T r = from_f<T>(sum);
+  return add ? from_f<T>(prev + to_f(r)) : r;
+}
+
+__device__ __forceinline__ uint32_t word(const uint4& v, int w) {
+  return w == 0 ? v.x : w == 1 ? v.y : w == 2 ? v.z : v.w;
+}
+
+// element k of a 16-byte vector of T, as float (k a constant after
+// unrolling, so the vector stays in registers)
+template <typename T> __device__ __forceinline__ float elem(const uint4& v, int k);
+template <> __device__ __forceinline__ float elem<float>(const uint4& v, int k) {
+  return __uint_as_float(word(v, k));
+}
+template <> __device__ __forceinline__ float elem<__nv_bfloat16>(const uint4& v,
+                                                                 int k) {
+  const uint32_t w = word(v, k >> 1);
+  return __uint_as_float((k & 1) ? (w & 0xffff0000u) : (w << 16));
+}
+
+template <typename T> __device__ __forceinline__ uint32_t bits(T x);
+template <> __device__ __forceinline__ uint32_t bits<float>(float x) {
+  return __float_as_uint(x);
+}
+template <> __device__ __forceinline__ uint32_t bits<__nv_bfloat16>(
+    __nv_bfloat16 x) {
+  return __bfloat16_as_ushort(x);
+}
+
+constexpr int kUnroll = 4;  // 16-byte vectors in flight per lane
+
+// out[0, d) = finish(0 + src) (src null: finish(0)), 16 bytes a lane where
+// every row is 16-byte aligned
+template <typename T>
+__device__ void copy_row(const T* __restrict__ src, const T* prev, T* out,
+                         int d, int lane) {
+  constexpr int V = 16 / sizeof(T);
+  constexpr int kPer = V / 4;  // elements per 32-bit word
+  const uintptr_t align = reinterpret_cast<uintptr_t>(out) |
+                          reinterpret_cast<uintptr_t>(src) |
+                          reinterpret_cast<uintptr_t>(prev);
+  int done = 0;
+  if ((align & 15) == 0) {
+    const int nvec = d / V;
+    const uint4* s4 = reinterpret_cast<const uint4*>(src);
+    const uint4* p4 = reinterpret_cast<const uint4*>(prev);
+    uint4* o4 = reinterpret_cast<uint4*>(out);
+    for (int v0 = 0; v0 < nvec; v0 += 32 * kUnroll) {
+      uint4 a[kUnroll], b[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int vi = v0 + u * 32 + lane;
+        a[u] = make_uint4(0, 0, 0, 0);
+        b[u] = make_uint4(0, 0, 0, 0);
+        if (vi < nvec) {
+          if (src) a[u] = s4[vi];
+          if (prev) b[u] = p4[vi];
         }
-        mine[j + 1] = key;
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int vi = v0 + u * 32 + lane;
+        if (vi >= nvec) continue;
+        uint32_t ow[4];
+#pragma unroll
+        for (int w = 0; w < 4; ++w) {
+          ow[w] = 0;
+#pragma unroll
+          for (int h = 0; h < kPer; ++h) {
+            const int k = w * kPer + h;
+            const T r = finish<T>(0.f + elem<T>(a[u], k), prev != nullptr,
+                                  elem<T>(b[u], k));
+            ow[w] |= bits<T>(r) << (32 / kPer * h);
+          }
+        }
+        o4[vi] = make_uint4(ow[0], ow[1], ow[2], ow[3]);
       }
     }
-    __syncthreads();
+    done = nvec * V;
   }
+  for (int col = done + lane; col < d; col += 32)
+    out[col] = finish<T>(0.f + (src ? to_f(src[col]) : 0.f), prev != nullptr,
+                         prev ? to_f(prev[col]) : 0.f);
+}
+
+// Warp `row`'s output: the tokens of the row (n of them, the first at
+// first when n == 1) summed in ascending t.
+template <typename T>
+__device__ void write_row(const T* __restrict__ x, int d, const Route& r,
+                          int T_, long long row, int n, int first,
+                          const T* prev_buf, T* buf, int lane) {
   T* out = buf + row * d;
-  for (int col = threadIdx.x; col < d; col += blockDim.x) {
-    float acc = 0.f;
-    for (int i = 0; i < n; ++i)
-      acc += to_f(x[static_cast<long long>(mine[i]) * d + col]);
-    out[col] = from_f<T>(acc);
+  const T* prev = prev_buf ? prev_buf + row * d : nullptr;
+  if (n <= 1) {
+    copy_row<T>(n ? x + static_cast<long long>(first) * d : nullptr, prev,
+                out, d, lane);
+    return;
+  }
+  // several tokens: their sum in ascending t, kDupCols columns a lane at a
+  // time, the tokens found by one ballot per 32 of them
+  constexpr int kDupCols = 8;
+  for (int col0 = 0; col0 < d; col0 += 32 * kDupCols) {
+    float acc[kDupCols];
+#pragma unroll
+    for (int c = 0; c < kDupCols; ++c) acc[c] = 0.f;
+    int seen = 0;
+    for (int t0 = 0; t0 < T_ && seen < n; t0 += 32) {
+      const int t = t0 + lane;
+      unsigned m = __ballot_sync(0xffffffffu, t < T_ && r.row(t) == row);
+      seen += __popc(m);
+      while (m) {
+        const T* xr = x + static_cast<long long>(t0 + __ffs(m) - 1) * d;
+        m &= m - 1;
+#pragma unroll
+        for (int c = 0; c < kDupCols; ++c) {
+          const int col = col0 + 32 * c + lane;
+          if (col < d) acc[c] += to_f(xr[col]);
+        }
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < kDupCols; ++c) {
+      const int col = col0 + 32 * c + lane;
+      if (col < d)
+        out[col] = finish<T>(acc[c], prev != nullptr,
+                             prev ? to_f(prev[col]) : 0.f);
+    }
+  }
+}
+
+// One warp per (e, c) row.  kScan: the warp finds the row's tokens in the
+// routing; else it reads (and re-zeroes) the count and token
+// dispatch_count_kernel left in the workspace.
+template <typename T, bool kScan>
+__global__ void __launch_bounds__(kRowThreads, 4)
+dispatch_rows_kernel(const T* __restrict__ x, int d, Route r, int T_,
+                     long long rows, int32_t* __restrict__ ws, const T* prev,
+                     T* buf) {
+  const int lane = threadIdx.x & 31;
+  const long long warps =
+      static_cast<long long>(gridDim.x) * (kRowThreads / 32);
+  for (long long row = (static_cast<long long>(blockIdx.x) * kRowThreads +
+                        threadIdx.x) >> 5;
+       row < rows; row += warps) {
+    int n = 0, first = 0;
+    if (kScan) {
+      for (int t0 = 0; t0 < T_; t0 += 32) {
+        const int t = t0 + lane;
+        const unsigned m =
+            __ballot_sync(0xffffffffu, t < T_ && r.row(t) == row);
+        if (m && n == 0) first = t0 + __ffs(m) - 1;
+        n += __popc(m);
+      }
+    } else {
+      if (lane == 0) {
+        n = ws[2 * row];
+        first = ws[2 * row + 1];
+        ws[2 * row] = 0;  // the counts are zero again for the next call
+      }
+      n = __shfl_sync(0xffffffffu, n, 0);
+      first = __shfl_sync(0xffffffffu, first, 0);
+    }
+    write_row<T>(x, d, r, T_, row, n, first, prev, buf, lane);
   }
 }
 
@@ -180,27 +302,27 @@ __global__ void combine_kernel(const T* __restrict__ buf, int E, int C, int d,
 }
 
 template <typename T>
-cudaError_t dispatch(const void* x, const int32_t* eidx, const int32_t* slot,
-                     int T_, int d, int E, int C, void* buf, int32_t* scratch,
+cudaError_t dispatch(const void* x, int d, const Route& r, int T_,
+                     const void* prev, void* buf, int32_t* workspace,
                      cudaStream_t st) {
-  const long long rows = static_cast<long long>(E) * C;
-  int32_t* counts = scratch;
-  int32_t* starts = counts + rows;
-  int32_t* cursor = starts + rows;
-  int32_t* list = cursor + rows;
-  cudaError_t err = cudaMemsetAsync(counts, 0, sizeof(int32_t) * rows, st);
-  if (err != cudaSuccess) return err;
-  const int tb = (T_ + kThreads - 1) / kThreads;
-  if (T_ > 0) {
-    count_kernel<<<tb, kThreads, 0, st>>>(eidx, slot, T_, E, C, counts);
+  // a warp for every row, and registers for four blocks an SM: the rows'
+  // loads and stores all in flight at once
+  const long long rows = static_cast<long long>(r.E) * r.C;
+  const long long blocks = (rows + kRowThreads / 32 - 1) / (kRowThreads / 32);
+  const T* xs = static_cast<const T*>(x);
+  const T* ps = static_cast<const T*>(prev);
+  T* bs = static_cast<T*>(buf);
+  if (T_ <= kScanTokens) {
+    dispatch_rows_kernel<T, true><<<static_cast<int>(blocks), kRowThreads, 0,
+                                    st>>>(xs, d, r, T_, rows, nullptr, ps,
+                                          bs);
+  } else {
+    dispatch_count_kernel<<<(T_ + kThreads - 1) / kThreads, kThreads, 0,
+                            st>>>(r, T_, workspace);
+    dispatch_rows_kernel<T, false><<<static_cast<int>(blocks), kRowThreads,
+                                     0, st>>>(xs, d, r, T_, rows, workspace,
+                                              ps, bs);
   }
-  scan_kernel<<<1, kScanThreads, 0, st>>>(counts, static_cast<int>(rows),
-                                          starts, cursor);
-  if (T_ > 0) {
-    place_kernel<<<tb, kThreads, 0, st>>>(eidx, slot, T_, E, C, cursor, list);
-  }
-  gather_kernel<T><<<static_cast<unsigned>(rows), 128, 0, st>>>(
-      static_cast<const T*>(x), d, counts, starts, list, static_cast<T*>(buf));
   return cudaGetLastError();
 }
 
@@ -208,25 +330,35 @@ cudaError_t dispatch(const void* x, const int32_t* eidx, const int32_t* slot,
 
 extern "C" {
 
-long long repro_moe_dispatch_scratch_ints(long long T, long long E,
-                                          long long C) {
-  return 3 * E * C + (T > 0 ? T : 1);
+// int32 entries of the workspace a dispatch of T tokens into E * C rows
+// needs, a (count, token) pair a row: none when the row kernel scans the
+// routing itself.
+long long repro_moe_dispatch_workspace_ints(long long T, long long E,
+                                            long long C) {
+  return T <= kScanTokens ? 0 : 2 * E * C;
 }
 
-// dtype: 0 = float32, 1 = bfloat16.  x [T, d]; eidx, slot [T] int32;
-// buf [E, C, d] in x's dtype.
-int repro_moe_dispatch(const void* x, const void* eidx, const void* slot,
-                       int T, int d, int E, int C, int dtype, void* buf,
-                       void* scratch, void* stream) {
+// dtype: 0 = float32, 1 = bfloat16.  x [T, d] contiguous; eidx, slot: T
+// int32 (is64 = 0) or int64 (is64 = 1) entries at element strides; buf
+// [E, C, d] in x's dtype; prev: null, or [E, C, d] added in (may be buf);
+// workspace: repro_moe_dispatch_workspace_ints(T, E, C) int32 entries
+// whose counts (the even entries) are zero, and are left zero; calls that
+// share one must be ordered (one stream, one issuing thread).
+int repro_moe_dispatch(const void* x, int T, int d, const void* eidx,
+                       long long e_stride, int e_is64, const void* slot,
+                       long long s_stride, int s_is64, int E, int C,
+                       int dtype, const void* prev, void* buf,
+                       void* workspace, void* stream) {
   if (E < 1 || C < 1 || d < 1 || T < 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (T > kScanTokens && workspace == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int32_t* e = static_cast<const int32_t*>(eidx);
-  const int32_t* s = static_cast<const int32_t*>(slot);
-  int32_t* sc = static_cast<int32_t*>(scratch);
+  const Route r{eidx, slot, e_stride, s_stride, e_is64, s_is64, E, C};
+  int32_t* ws = static_cast<int32_t*>(workspace);
   cudaError_t err;
-  if (dtype == 0) err = dispatch<float>(x, e, s, T, d, E, C, buf, sc, st);
-  else if (dtype == 1) err = dispatch<__nv_bfloat16>(x, e, s, T, d, E, C, buf, sc, st);
+  if (dtype == 0) err = dispatch<float>(x, d, r, T, prev, buf, ws, st);
+  else if (dtype == 1) err = dispatch<__nv_bfloat16>(x, d, r, T, prev, buf, ws, st);
   else err = cudaErrorInvalidValue;
   return static_cast<int>(err);
 }

@@ -14,7 +14,9 @@
 // tiles, because that is what the TPU's matrix unit runs well.  Hopper has
 // no reason to: a table in device memory addressed directly, with atomics,
 // does the same work in O(N) bytes and no arithmetic to speak of.  All four
-// kernels are therefore bound by memory traffic, not by operations.
+// kernels are therefore bound by memory traffic, not by operations, except
+// the segment sum over a long segment: its adds in row order are one
+// dependent chain.
 
 #include "radix_pass.cuh"
 
@@ -34,46 +36,176 @@ inline int grid_for(long long n, int threads, int max_blocks) {
 //
 // Replaces segment_join/kernel.py::segment_sum_pallas (one-hot matmul into a
 // VMEM-resident [num_segments] accumulator, num_segments <= 4096 there).
-// Bound: bytes -- reads 4 + 8 bytes per row, writes 8 bytes per segment.
-// Design: each warp reads 32 consecutive rows per step (coalesced) and
-// reduces runs of equal segment ids inside the warp with a segmented
-// shuffle scan, so a sorted id stream (the group-by case) issues one
-// float64 atomicAdd per run per 32 rows instead of one per row.  Ids outside
-// [0, num_segments) are dropped, as jax.ops.segment_sum drops them.  The
-// order of the atomics varies from run to run, so results agree with a
-// sequential sum to rounding (counts, sums of 1.0, are exact).
+// The reference's answer (jax.ops.segment_sum under x64, as the plain
+// version's index_add_ on the CPU) is the sequential sum of each segment in
+// ascending row order, starting from +0.0, and the kernel returns those
+// bits: float addition cannot be reassociated, so every segment is one
+// chain of dependent adds in row order, never a tree or atomics.  Ids
+// outside [0, num_segments) are dropped, as jax.ops.segment_sum drops them.
+//
+// Design: segment_sum_runs_kernel needs each segment's rows to be one
+// contiguous run (the GROUP BY's ids come out of a cumsum over sorted keys,
+// and its caller says so).  Each warp takes kChunk consecutive 32-row
+// tiles, loads all their ids into shared memory at once (one memory
+// latency, not one a tile), finds the run heads of each tile with a ballot
+// and owns the runs that start there:
+//   * a run that ends inside the tile is summed by its head lane from the
+//     warp's copy of the tile's values in shared memory, several runs at
+//     once;
+//   * the run that reaches past the tile is continued by the whole warp
+//     (continue_run): it loads kLook tiles of ids and values (coalesced),
+//     stages the values in shared memory and loads the next kLook tiles
+//     while lane 0 adds the staged ones in row order.
+// A tile whose rows all continue an earlier run reads its ids only.  Any
+// other ids (the join aggregates') are first grouped stably by the digit
+// passes of radix_rank (radix_pass.cuh, counted schedule), whose last pass
+// writes each row's (id, value) to its place in segment order; the run
+// kernel then sums the grouped copy.
+// Bound: bytes -- reads 4 + 8 bytes per row, writes 8 bytes per segment
+// (the grouping adds its digit passes).  The chain of one segment costs
+// one float64 add latency per row, so a segment of m rows takes at least m
+// times that latency, whatever the card's bandwidth: a skewed column (one
+// segment holding half the rows) is bound by that chain, not by bytes.
 // ---------------------------------------------------------------------------
-__global__ void segment_sum_f64_kernel(const int32_t* __restrict__ seg,
-                                       const double* __restrict__ vals,
-                                       long long n, double* __restrict__ out,
-                                       int num_segments) {
-  const int lane = threadIdx.x & 31;
-  const long long warp = (static_cast<long long>(blockIdx.x) * blockDim.x +
-                          threadIdx.x) >> 5;
-  const long long num_warps =
-      (static_cast<long long>(gridDim.x) * blockDim.x) >> 5;
-  const unsigned lower_and_me =
-      (lane == 31) ? kFullMask : ((1u << (lane + 1)) - 1u);
-  for (long long base = warp * 32; base < n; base += num_warps * 32) {
+constexpr int kSumThreads = 256;
+constexpr int kSumWarps = kSumThreads / 32;
+constexpr int kChunk = 16;  // consecutive 32-row tiles a warp scans
+constexpr int kLook = 4;    // tiles of a long run staged at a time
+constexpr int kBatch = 8;   // staged values loaded ahead of their adds
+
+// acc + v[0] + v[1] + ... + v[count - 1], added in that order; the loads
+// of the next kBatch values are issued before the adds of this batch, so
+// the chain runs at the add's latency, not the load's
+__device__ __forceinline__ double add_in_order(double acc, const double* v,
+                                               int count) {
+  double cur[kBatch], nxt[kBatch];
+  int j = 0;
+  if (count >= kBatch) {
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) cur[u] = v[u];
+  }
+  for (; j + kBatch <= count; j += kBatch) {
+    if (j + 2 * kBatch <= count) {
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) nxt[u] = v[j + kBatch + u];
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) acc = acc + cur[u];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) cur[u] = nxt[u];
+  }
+  for (; j < count; ++j) acc = acc + v[j];
+  return acc;
+}
+
+__device__ __forceinline__ int id_at(const int32_t* seg, long long i,
+                                     long long n) {
+  return i >= 0 && i < n ? seg[i] : -1;
+}
+
+// The run that starts at row `from` - 1 of segment `run` with the sum acc
+// so far, continued by the whole warp from row `from` to its end: the warp
+// stages kLook tiles of values in shared memory and loads the next kLook
+// tiles while lane 0 adds the staged ones.  Returns the sum (on lane 0).
+__device__ double continue_run(const int32_t* __restrict__ seg,
+                               const double* __restrict__ vals, long long n,
+                               long long from, int run, double acc,
+                               double* sv, int lane) {
+  int gs[kLook];
+  double gv[kLook];
+#pragma unroll
+  for (int k = 0; k < kLook; ++k) {
+    const long long r = from + 32 * k + lane;
+    gs[k] = id_at(seg, r, n);
+    gv[k] = r < n ? vals[r] : 0.0;
+  }
+  for (long long at = from;; at += 32 * kLook) {
+    int count = 32 * kLook;  // rows of the group that continue the run
+#pragma unroll
+    for (int k = kLook - 1; k >= 0; --k) {
+      const unsigned stop = __ballot_sync(kFullMask, gs[k] != run);
+      if (stop) count = 32 * k + __ffs(stop) - 1;
+    }
+    __syncwarp();  // lane 0 has added the previous group
+#pragma unroll
+    for (int k = 0; k < kLook; ++k) sv[32 * k + lane] = gv[k];
+    __syncwarp();
+    const bool more = count == 32 * kLook;
+    if (more) {
+#pragma unroll
+      for (int k = 0; k < kLook; ++k) {
+        const long long r = at + 32 * (kLook + k) + lane;
+        gs[k] = id_at(seg, r, n);
+        gv[k] = r < n ? vals[r] : 0.0;
+      }
+    }
+    if (lane == 0) acc = add_in_order(acc, sv, count);
+    if (!more) break;
+  }
+  __syncwarp();
+  return acc;
+}
+
+// (at most 80 registers: three blocks an SM, for the latency of the scan)
+__global__ void __launch_bounds__(kSumThreads, 3)
+segment_sum_runs_kernel(const int32_t* __restrict__ seg,
+                        const double* __restrict__ vals, long long n,
+                        double* __restrict__ out, int num_segments) {
+  constexpr int kRows = 32 * kChunk;
+  __shared__ double stage[kSumWarps][32 * kLook];
+  // the chunk's ids and the id after it, loaded all at once
+  __shared__ int ids[kSumWarps][kRows + 1];
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  double* sv = stage[wid];
+  int* sid = ids[wid];
+  const long long warp =
+      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+  const long long first = warp * kRows;
+  if (first >= n) return;
+#pragma unroll
+  for (int c = 0; c < kChunk; ++c)
+    sid[32 * c + lane] = id_at(seg, first + 32 * c + lane, n);
+  if (lane == 0) sid[kRows] = id_at(seg, first + kRows, n);
+  const int before = id_at(seg, first - 1, n);  // the row before the chunk
+  __syncwarp();
+  for (int c = 0; c < kChunk; ++c) {
+    const long long base = first + 32 * c;
+    if (base >= n) break;
     const long long i = base + lane;
-    int s = -1;
-    double v = 0.0;
-    if (i < n) {
-      s = seg[i];
-      v = vals[i];
-      if (s < 0 || s >= num_segments) s = -1;
+    const int j = 32 * c + lane;
+    const bool row = i < n;
+    const int s = sid[j];
+    const int prev = j > 0 ? sid[j - 1] : before;
+    const bool head = row && (i == 0 || prev != s);
+    const bool tail = row && (i + 1 >= n || sid[j + 1] != s);
+    const bool live = s >= 0 && s < num_segments;
+    // a tile whose live rows all continue an earlier run has nothing to do
+    const unsigned heads = __ballot_sync(kFullMask, head && live);
+    if (heads != 0) {
+      const unsigned tails = __ballot_sync(kFullMask, tail);
+      sv[lane] = row ? vals[i] : 0.0;
+      __syncwarp();
+      // a head lane sums its run up to its tail, or to the tile's end when
+      // the run reaches past the tile (at most one such run, the last)
+      double acc = 0.0;
+      bool reaches_past = false;
+      if (head && live) {
+        const unsigned rest = tails & ~((1u << lane) - 1u);
+        const int end = rest ? __ffs(rest) - 1 : 31;
+        for (int k = lane; k <= end; ++k) acc = acc + sv[k];
+        if (rest) out[s] = acc;
+        reaches_past = rest == 0;
+      }
+      const unsigned open = __ballot_sync(kFullMask, reaches_past);
+      if (open != 0) {
+        const int owner = __ffs(open) - 1;
+        acc = __shfl_sync(kFullMask, acc, owner);
+        const int run = __shfl_sync(kFullMask, s, owner);
+        acc = continue_run(seg, vals, n, base + 32, run, acc, sv, lane);
+        if (lane == 0) out[run] = acc;
+      }
+      __syncwarp();  // sv is rewritten by the next tile
     }
-    const int prev = __shfl_up_sync(kFullMask, s, 1);
-    const int next = __shfl_down_sync(kFullMask, s, 1);
-    const bool head = (lane == 0) || (s != prev);
-    const bool tail = (lane == 31) || (s != next);
-    const unsigned heads = __ballot_sync(kFullMask, head);
-    const int start = 31 - __clz(heads & lower_and_me);
-    for (int d = 1; d < 32; d <<= 1) {
-      const double o = __shfl_up_sync(kFullMask, v, d);
-      if (lane - d >= start) v += o;
-    }
-    if (tail && s >= 0) atomicAdd(&out[s], v);
   }
 }
 
@@ -143,6 +275,90 @@ inline int rank_digits(int num_buckets) {
 // key and position buffers the passes need: none for one digit, one for
 // two (the first pass writes it, the last reads it), else two
 inline int rank_buffers(int digits) { return digits >= 3 ? 2 : digits - 1; }
+
+// The grouping before an ordered segment sum over unsorted ids: the same
+// stable sort by segment id as radix_rank, whose last pass writes each
+// row's id (-1 when out of range, so that the run kernel drops it) and
+// value to the row's place in segment order.
+struct GroupEnds {
+  const int32_t* ids;
+  uint32_t num_buckets;
+  const double* vals;
+  int32_t* grouped_ids;
+  double* grouped_vals;
+  __device__ uint32_t first_key(long long i) const {
+    const int b = ids[i];
+    return (b >= 0 && static_cast<uint32_t>(b) < num_buckets)
+               ? static_cast<uint32_t>(b) : num_buckets;
+  }
+  __device__ void visit(uint32_t, int) const {}
+  __device__ void last(int32_t dest, uint32_t key, int32_t p) const {
+    grouped_ids[dest] = key < num_buckets ? static_cast<int32_t>(key) : -1;
+    grouped_vals[dest] = vals[p];
+  }
+  __device__ void identity(long long) const {}
+};
+
+// The scratch of a counted sort of n keys below 2^bits(num_buckets):
+// digit totals, the [256][tiles] tile prefixes, then (offsets when
+// with_offsets) and the key and position buffers.
+struct CountedScratch {
+  radix::State st;
+  int32_t* tile_prefix;
+  int32_t* offsets;
+  radix::Buffers<uint32_t> buf;
+  size_t bytes;
+};
+
+inline CountedScratch carve_counted(unsigned char* base, long long n,
+                                    int num_buckets, bool with_offsets) {
+  CountedScratch c = {};
+  const int digits = rank_digits(num_buckets);
+  size_t off = 0;
+  auto take = [&](size_t bytes) {
+    unsigned char* at = base ? base + off : nullptr;
+    off += radix::align_up(bytes);
+    return at;
+  };
+  c.st.digit_counts = reinterpret_cast<int32_t*>(
+      take(radix::digit_counts_bytes()));
+  c.tile_prefix = reinterpret_cast<int32_t*>(
+      take(static_cast<size_t>(radix::tiles_for(n)) * radix::kBuckets *
+           sizeof(int32_t)));
+  if (with_offsets) {
+    c.offsets = reinterpret_cast<int32_t*>(
+        take(static_cast<size_t>(num_buckets) * sizeof(int32_t)));
+  }
+  c.buf = {{nullptr, nullptr}, {nullptr, nullptr}};
+  for (int k = 2 - rank_buffers(digits); k < 2; ++k) {
+    c.buf.keys[k] = reinterpret_cast<uint32_t*>(take(n * sizeof(uint32_t)));
+    c.buf.pos[k] = reinterpret_cast<int32_t*>(take(n * sizeof(int32_t)));
+  }
+  c.bytes = off;
+  return c;
+}
+
+// Every digit pass of a counted sort; after pass 0's counts, offsets (when
+// given) become the exclusive scan of counts[0, num_buckets).
+template <typename Ends>
+void counted_passes(const Ends& ends, const CountedScratch& c, long long n,
+                    int num_buckets, const int32_t* counts, cudaStream_t s) {
+  const int digits = rank_digits(num_buckets);
+  const int tiles = static_cast<int>(radix::tiles_for(n));
+  for (int pass = 0; pass < digits; ++pass) {
+    radix::tile_hist_kernel<uint32_t><<<tiles, radix::kThreads, 0, s>>>(
+        ends, c.buf, n, pass, tiles, c.tile_prefix);
+    radix::column_scan_kernel<<<radix::kBuckets, radix::kThreads, 0, s>>>(
+        c.tile_prefix, tiles, c.st.digit_counts + pass * radix::kBuckets);
+    if (pass == 0 && c.offsets != nullptr) {
+      exclusive_scan_kernel<<<1, kScanThreads, 0, s>>>(counts, num_buckets,
+                                                       c.offsets);
+    }
+    radix::digit_pass_kernel<uint32_t, Ends, false>
+        <<<tiles, radix::kThreads, 0, s>>>(ends, c.buf, n, pass, digits,
+                                           c.st, c.tile_prefix, tiles);
+  }
+}
 
 // ---------------------------------------------------------------------------
 // join_table_build: cnt[c] = build rows with code c; inv[c] = largest
@@ -215,29 +431,53 @@ const char* repro_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+static int sum_grid(long long n) {
+  const long long warps = (n + 32 * kChunk - 1) / (32 * kChunk);
+  return static_cast<int>((warps + kSumWarps - 1) / kSumWarps);
+}
+
+// Bytes of scratch repro_segment_sum_f64 needs for ids that are not
+// sorted: the grouping's sort and the grouped ids and values.
+long long repro_segment_sum_f64_scratch_bytes(long long n, int num_segments) {
+  if (n <= 0 || num_segments <= 0) return 0;
+  const CountedScratch c = carve_counted(nullptr, n, num_segments, false);
+  return static_cast<long long>(c.bytes + radix::align_up(n * sizeof(int32_t)) +
+                                radix::align_up(n * sizeof(double)));
+}
+
+// out: [num_segments] float64, zeroed by the caller.  ids_sorted: the rows
+// of each segment are contiguous (any order of the segments); else scratch
+// holds repro_segment_sum_f64_scratch_bytes(n, num_segments) bytes.
 int repro_segment_sum_f64(const void* seg, const void* vals, long long n,
-                          void* out, int num_segments, void* stream) {
-  if (n > 0) {
-    const int threads = 256;
-    segment_sum_f64_kernel<<<grid_for(n, threads, 132 * 16), threads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int32_t*>(seg), static_cast<const double*>(vals), n,
-        static_cast<double*>(out), num_segments);
+                          void* out, int num_segments, int ids_sorted,
+                          void* scratch, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n <= 0 || num_segments <= 0) return static_cast<int>(cudaGetLastError());
+  const int32_t* ids = static_cast<const int32_t*>(seg);
+  const double* v = static_cast<const double*>(vals);
+  if (!ids_sorted) {
+    if (n > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+    unsigned char* base = static_cast<unsigned char*>(scratch);
+    const CountedScratch c = carve_counted(base, n, num_segments, false);
+    int32_t* gids = reinterpret_cast<int32_t*>(base + c.bytes);
+    double* gvals = reinterpret_cast<double*>(
+        base + c.bytes + radix::align_up(n * sizeof(int32_t)));
+    const GroupEnds ends{ids, static_cast<uint32_t>(num_segments), v, gids,
+                         gvals};
+    counted_passes(ends, c, n, num_segments, nullptr, s);
+    ids = gids;
+    v = gvals;
   }
+  segment_sum_runs_kernel<<<sum_grid(n), kSumThreads, 0, s>>>(
+      ids, v, n, static_cast<double*>(out), num_segments);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Bytes of scratch repro_radix_rank needs for n ids into num_buckets.
 long long repro_radix_rank_scratch_bytes(long long n, int num_buckets) {
   if (n <= 0 || num_buckets <= 0) return 0;
-  const size_t pair = radix::align_up(n * sizeof(uint32_t)) +
-                      radix::align_up(n * sizeof(int32_t));
   return static_cast<long long>(
-      radix::digit_counts_bytes() +
-      radix::align_up(static_cast<size_t>(radix::tiles_for(n)) *
-                      radix::kBuckets * sizeof(int32_t)) +
-      radix::align_up(static_cast<size_t>(num_buckets) * sizeof(int32_t)) +
-      rank_buffers(rank_digits(num_buckets)) * pair);
+      carve_counted(nullptr, n, num_buckets, true).bytes);
 }
 
 // rank: [n] int32, counts: [num_buckets] int32 (both written here);
@@ -247,43 +487,15 @@ int repro_radix_rank(const void* ids, long long n, int num_buckets,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (num_buckets <= 0 || n <= 0 || n > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int digits = rank_digits(num_buckets);
-  const int tiles = static_cast<int>(radix::tiles_for(n));
-  unsigned char* p = static_cast<unsigned char*>(scratch);
-  radix::State st = {};
-  st.digit_counts = reinterpret_cast<int32_t*>(p);
-  p += radix::digit_counts_bytes();
-  int32_t* tile_prefix = reinterpret_cast<int32_t*>(p);
-  p += radix::align_up(static_cast<size_t>(tiles) * radix::kBuckets *
-                       sizeof(int32_t));
-  int32_t* offsets = reinterpret_cast<int32_t*>(p);
-  p += radix::align_up(static_cast<size_t>(num_buckets) * sizeof(int32_t));
-  radix::Buffers<uint32_t> buf = {{nullptr, nullptr}, {nullptr, nullptr}};
-  for (int k = 2 - rank_buffers(digits); k < 2; ++k) {
-    buf.keys[k] = reinterpret_cast<uint32_t*>(p);
-    p += radix::align_up(n * sizeof(uint32_t));
-    buf.pos[k] = reinterpret_cast<int32_t*>(p);
-    p += radix::align_up(n * sizeof(int32_t));
-  }
+  const CountedScratch c = carve_counted(static_cast<unsigned char*>(scratch),
+                                         n, num_buckets, true);
   cudaMemsetAsync(counts, 0, static_cast<size_t>(num_buckets) * sizeof(int32_t),
                   s);
   const RankEnds ends{static_cast<const int32_t*>(ids),
                       static_cast<uint32_t>(num_buckets),
-                      static_cast<int32_t*>(counts), offsets,
+                      static_cast<int32_t*>(counts), c.offsets,
                       static_cast<int32_t*>(rank)};
-  for (int pass = 0; pass < digits; ++pass) {
-    radix::tile_hist_kernel<uint32_t><<<tiles, radix::kThreads, 0, s>>>(
-        ends, buf, n, pass, tiles, tile_prefix);
-    radix::column_scan_kernel<<<radix::kBuckets, radix::kThreads, 0, s>>>(
-        tile_prefix, tiles, st.digit_counts + pass * radix::kBuckets);
-    if (pass == 0) {
-      exclusive_scan_kernel<<<1, kScanThreads, 0, s>>>(
-          static_cast<const int32_t*>(counts), num_buckets, offsets);
-    }
-    radix::digit_pass_kernel<uint32_t, RankEnds, false>
-        <<<tiles, radix::kThreads, 0, s>>>(ends, buf, n, pass, digits, st,
-                                           tile_prefix, tiles);
-  }
+  counted_passes(ends, c, n, num_buckets, static_cast<int32_t*>(counts), s);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -55,8 +55,8 @@ LAUNCHES: Dict[str, int] = {
     "join_table_build": 0,
     "join_table_probe": 0,
     "radix_sort_pass": 0,
-    "flash_attention": 0,        # bfloat16, tensor cores
-    "flash_attention_f32": 0,    # float32, CUDA cores
+    "flash_attention": 0,        # bfloat16, tensor cores (wgmma)
+    "flash_attention_f32": 0,    # float32, tensor cores in 3xTF32
     "moe_dispatch": 0,
     "moe_combine": 0,
 }

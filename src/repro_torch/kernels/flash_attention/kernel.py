@@ -12,8 +12,9 @@ strides, so no transpose is made.  Two kernels serve it, chosen by dtype in
   products on the tensor cores (``wgmma``), K/V fed by TMA; D and Dv
   multiples of 16 up to 256, pointers and strides 16-byte aligned (TMA's
   rule).  Launch counter ``flash_attention``.
-* float32: ``csrc/flash_attention.cu``, float32 FMAs on the CUDA cores,
-  which hold the reference's float32 tolerance; D and Dv up to 256.  Launch
+* float32: ``csrc/flash_attention.cu``, both products on the tensor cores
+  (``mma.sync`` TF32) in the 3xTF32 split, which holds the reference's
+  float32 tolerance; D and Dv up to 256, any element strides.  Launch
   counter ``flash_attention_f32``.
 
 What neither kernel takes raises ``ValueError``; nothing falls back to the

@@ -5,13 +5,13 @@ The contract is that of ``src/repro/kernels/flash_attention/ops.py``
 ``[B, Sq, H, D]``, k/v ``[B, Sk, KH, D(v)]`` → ``[B, Sq, H, Dv]`` in q's
 dtype, with ``q_offset`` placing query row i at position ``q_offset + i``.
 A CUDA tensor launches a hand-written kernel of :mod:`.kernel` (bf16 on
-the tensor cores, float32 on the CUDA cores) or raises, a CPU tensor takes
-the plain version of :mod:`.ref`.  The kernels read their inputs through
-their strides, so a view (a slice of a fused projection, a transpose of
-``[B, H, S, D]``) goes in without a copy; the last dimension must be
-contiguous, and bf16 strides whole 16 bytes.  The tile
-sizes are the kernel's own on the card; on the CPU ``q_blk``/``kv_blk``
-are the plain version's tiles.
+``wgmma``, float32 in the 3xTF32 split on ``mma.sync``) or raises, a CPU
+tensor takes the plain version of :mod:`.ref`.  The kernels read their
+inputs through their strides, so a view (a slice of a fused projection, a
+transpose of ``[B, H, S, D]``) goes in without a copy; the last dimension
+must be contiguous, and bf16 strides whole 16 bytes.  The tile sizes are
+the kernel's own on the card; on the CPU ``q_blk``/``kv_blk`` are the plain
+version's tiles.
 """
 from __future__ import annotations
 

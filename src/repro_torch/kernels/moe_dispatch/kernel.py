@@ -4,15 +4,22 @@
 ``src/repro/kernels/moe_dispatch/kernel.py::dispatch_pallas`` and
 :func:`moe_combine` replaces ``::combine_pallas``.  Each wrapper checks the
 device, dtype, shape and contiguity of its inputs and raises on anything
-the kernel does not take, allocates the output (and the dispatch's int32
-scratch) with ``torch.empty``, launches on ``torch.cuda.current_stream()``,
-raises if the launch reports a CUDA error, and adds one to its launch
-counter.  They only take CUDA tensors; the plain versions in :mod:`.ref`
-serve CPU tensors, chosen in :mod:`.ops`.
+the kernel does not take, allocates the output with ``torch.empty`` (the
+dispatch can add into a buffer it is given instead), launches on
+``torch.cuda.current_stream()``, raises if the launch reports a CUDA error,
+and adds one to its launch counter.  The dispatch reads the routing
+columns as they come (int32 or int64, any stride); above the kernel's scan
+limit it needs an int32 workspace of (count, token) pairs, made zeroed once
+per device, stream and host thread and left with zero counts by the
+kernel, so a call allocates nothing else.  They
+only take CUDA tensors; the plain versions in :mod:`.ref` serve CPU
+tensors, chosen in :mod:`.ops`.
 """
 from __future__ import annotations
 
 import ctypes
+import threading
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -21,16 +28,23 @@ from ...device import count_launch, kernel_library
 __all__ = ["moe_dispatch", "moe_combine"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_INDEX = {torch.int32: 0, torch.int64: 1}
 _INT_MAX = 2**31 - 1
+#: (device index, stream, host thread) -> the dispatch's int32 workspace:
+#: calls that share one are ordered, since one thread issues them on one
+#: stream
+_WORKSPACE: Dict[Tuple[int, int, int], torch.Tensor] = {}
+_WORKSPACE_LOCK = threading.Lock()
 
 
 def _lib() -> ctypes.CDLL:
     lib = kernel_library("moe_dispatch")
     if not getattr(lib, "_repro_bound", False):
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.repro_moe_dispatch_scratch_ints.argtypes = [ll, ll, ll]
-        lib.repro_moe_dispatch_scratch_ints.restype = ll
-        lib.repro_moe_dispatch.argtypes = [p, p, p, i, i, i, i, i, p, p, p]
+        lib.repro_moe_dispatch_workspace_ints.argtypes = [ll, ll, ll]
+        lib.repro_moe_dispatch_workspace_ints.restype = ll
+        lib.repro_moe_dispatch.argtypes = [p, i, i, p, ll, i, p, ll, i, i,
+                                           i, i, p, p, p, p]
         lib.repro_moe_dispatch.restype = ctypes.c_int
         lib.repro_moe_combine.argtypes = [p, i, i, i, p, p, p, i, i, p, p]
         lib.repro_moe_combine.restype = ctypes.c_int
@@ -66,31 +80,74 @@ def _raise(lib, rc: int, name: str) -> None:
                            f"({msg})")
 
 
+def _route_column(t, what: str, n: int, dev) -> None:
+    if not isinstance(t, torch.Tensor) or t.device != dev:
+        raise ValueError(f"{what}: expected a tensor on {dev}")
+    if t.dim() != 1 or t.shape[0] != n:
+        raise ValueError(f"{what}: expected {n} entries, got "
+                         f"{tuple(t.shape)}")
+    if t.dtype not in _INDEX:
+        raise TypeError(f"{what}: expected int32 or int64, got {t.dtype}")
+
+
+def _workspace(dev: torch.device, stream: int,
+               ints: int) -> Optional[torch.Tensor]:
+    """The int32 workspace of at least ``ints`` entries for this device,
+    stream and thread, made zeroed (the kernel leaves its counts zero);
+    None when none is needed.  The caller holds the tensor until its launch
+    is queued."""
+    if ints == 0:
+        return None
+    key = (dev.index, stream, threading.get_ident())
+    with _WORKSPACE_LOCK:
+        ws = _WORKSPACE.get(key)
+        if ws is None or ws.numel() < ints:
+            ws = torch.zeros(ints, dtype=torch.int32, device=dev)
+            _WORKSPACE[key] = ws
+    return ws
+
+
 def moe_dispatch(x: torch.Tensor, eidx: torch.Tensor, slot: torch.Tensor,
-                 num_experts: int, capacity: int) -> torch.Tensor:
-    """x ``[T, d]`` (float32 or bfloat16); eidx/slot ``[T]`` int32 → buf
-    ``[E, C, d]`` in x's dtype: each (expert, slot) row is the float32 sum,
-    in ascending t, of the x rows routed to it; assignments outside
-    ``[0, E) x [0, C)`` are dropped."""
+                 num_experts: int, capacity: int,
+                 into: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x ``[T, d]`` (float32 or bfloat16); eidx/slot ``[T]`` int32 or int64
+    at any stride (a column of the ``[T, k]`` routing) → buf ``[E, C, d]``
+    in x's dtype: each (expert, slot) row is the float32 sum, in ascending
+    t, of the x rows routed to it; assignments outside ``[0, E) x [0, C)``
+    are dropped.  With ``into`` (``[E, C, d]``, x's dtype, contiguous) the
+    dispatch is added into it in place, rounded as ``into + buf`` rounds,
+    and ``into`` is returned."""
     _check(x, "x", 2, tuple(_DTYPES))
     T, d = x.shape
-    _check_routing(eidx, slot, T, x.device)
+    dev = x.device
+    _route_column(eidx, "eidx", T, dev)
+    _route_column(slot, "slot", T, dev)
     E, C = int(num_experts), int(capacity)
     if E < 1 or C < 1:
         raise ValueError(f"num_experts {E} and capacity {C} must be >= 1")
     if T > _INT_MAX or d > _INT_MAX or E * C > _INT_MAX:
         raise ValueError("sizes do not fit the kernel's int32 indices")
-    buf = torch.empty((E, C, d), dtype=x.dtype, device=x.device)
+    if into is None:
+        buf = torch.empty((E, C, d), dtype=x.dtype, device=dev)
+    else:
+        _check(into, "into", 3, (x.dtype,))
+        if tuple(into.shape) != (E, C, d) or into.device != dev:
+            raise ValueError(f"into: expected ({E}, {C}, {d}) on {dev}, got "
+                             f"{tuple(into.shape)} on {into.device}")
+        buf = into
     if d == 0:
         return buf
     lib = _lib()
-    scratch = torch.empty(lib.repro_moe_dispatch_scratch_ints(T, E, C),
-                          dtype=torch.int32, device=x.device)
-    with torch.cuda.device(x.device):
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        ws = _workspace(dev, stream,
+                        lib.repro_moe_dispatch_workspace_ints(T, E, C))
         rc = lib.repro_moe_dispatch(
-            x.data_ptr(), eidx.data_ptr(), slot.data_ptr(), T, d, E, C,
-            _DTYPES[x.dtype], buf.data_ptr(), scratch.data_ptr(),
-            torch.cuda.current_stream(x.device).cuda_stream)
+            x.data_ptr(), T, d, eidx.data_ptr(), eidx.stride(0),
+            _INDEX[eidx.dtype], slot.data_ptr(), slot.stride(0),
+            _INDEX[slot.dtype], E, C, _DTYPES[x.dtype],
+            None if into is None else into.data_ptr(), buf.data_ptr(),
+            None if ws is None else ws.data_ptr(), stream)
     _raise(lib, rc, "moe_dispatch")
     count_launch("moe_dispatch")
     return buf

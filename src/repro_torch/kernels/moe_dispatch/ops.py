@@ -9,7 +9,7 @@ CPU tensor takes the plain versions of :mod:`.ref`.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -21,15 +21,16 @@ __all__ = ["dispatch", "combine", "moe_dispatch", "expert_slots"]
 
 
 def dispatch(x: torch.Tensor, eidx: torch.Tensor, slot: torch.Tensor,
-             num_experts: int, capacity: int) -> torch.Tensor:
-    """x ``[T, d]``; eidx/slot ``[T]`` (one routing slot) → buf
-    ``[E, C, d]``."""
-    eidx = eidx.to(torch.int32).contiguous()
-    slot = slot.to(torch.int32).contiguous()
+             num_experts: int, capacity: int,
+             into: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x ``[T, d]``; eidx/slot ``[T]`` (one routing slot, any integer dtype
+    and stride) → buf ``[E, C, d]``; with ``into``, ``into + buf`` written
+    into ``into`` (on the card in the dispatch kernel itself)."""
     if x.device.type == "cuda":
         return _k.moe_dispatch(x.contiguous(), eidx, slot, num_experts,
-                               capacity)
-    return _ref.dispatch_ref(x, eidx, slot, num_experts, capacity)
+                               capacity, into)
+    buf = _ref.dispatch_ref(x, eidx, slot, num_experts, capacity)
+    return buf if into is None else into.add_(buf)
 
 
 def combine(buf: torch.Tensor, eidx: torch.Tensor, slot: torch.Tensor,
@@ -63,9 +64,8 @@ def moe_dispatch(params, x_flat: torch.Tensor, topk_idx: torch.Tensor,
     E, k = cfg.num_experts, cfg.experts_per_token
     slot = expert_slots(topk_idx, E)
     buf = None
-    for j in range(k):
-        b = dispatch(x_flat, topk_idx[:, j], slot[:, j], E, capacity)
-        buf = b if buf is None else buf + b
+    for j in range(k):  # slot j > 0 is added into the running buffer
+        buf = dispatch(x_flat, topk_idx[:, j], slot[:, j], E, capacity, buf)
     out_buf = expert_ffn(params, buf, cfg)
     y = None
     for j in range(k):

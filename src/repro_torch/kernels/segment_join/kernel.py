@@ -38,7 +38,9 @@ def _lib() -> ctypes.CDLL:
     lib = kernel_library("segment_join")
     if not getattr(lib, "_repro_bound", False):
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.repro_segment_sum_f64.argtypes = [p, p, ll, p, i, p]
+        lib.repro_segment_sum_f64_scratch_bytes.argtypes = [ll, i]
+        lib.repro_segment_sum_f64_scratch_bytes.restype = ll
+        lib.repro_segment_sum_f64.argtypes = [p, p, ll, p, i, i, p, p]
         lib.repro_radix_rank_scratch_bytes.argtypes = [ll, i]
         lib.repro_radix_rank_scratch_bytes.restype = ll
         lib.repro_radix_rank.argtypes = [p, ll, i, p, p, p, p]
@@ -94,9 +96,17 @@ def _stream(dev: torch.device) -> int:
 
 
 def segment_sum(seg_ids: torch.Tensor, values: torch.Tensor,
-                num_segments: int) -> torch.Tensor:
+                num_segments: int, ids_sorted: bool = False) -> torch.Tensor:
     """``sums[s] = Σ values[i]`` over ``seg_ids[i] == s`` (int32 ids, float64
-    values); ids outside ``[0, num_segments)`` are dropped."""
+    values); ids outside ``[0, num_segments)`` are dropped.  Each segment is
+    summed in ascending row order from +0.0, so the result has the bits of
+    :func:`.ref.segment_sum_ref` on the CPU, on every run.  ``ids_sorted``
+    says that each segment's rows are contiguous (the GROUP BY's ids, out of
+    a cumsum over sorted keys): the caller knows it, and the kernel does
+    not check it.  A wrong True gives wrong sums: each run of a segment
+    writes its own sum over the segment's, and one of them stays.  Other ids are
+    first grouped stably by segment (the digit passes of
+    :func:`radix_rank`) into scratch."""
     _require(seg_ids, torch.int32, "seg_ids")
     _require(values, torch.float64, "values")
     if seg_ids.shape != values.shape:
@@ -108,10 +118,17 @@ def segment_sum(seg_ids: torch.Tensor, values: torch.Tensor,
     n = seg_ids.shape[0]
     if n == 0 or S == 0:
         return out
+    lib = _lib()
+    scratch = None  # sorted ids need none
+    if not ids_sorted:
+        _size(n, "rows")
+        scratch = torch.empty(lib.repro_segment_sum_f64_scratch_bytes(n, S),
+                              dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
-        _launch("segment_sum", _lib().repro_segment_sum_f64,
+        _launch("segment_sum", lib.repro_segment_sum_f64,
                 seg_ids.data_ptr(), values.data_ptr(), n, out.data_ptr(), S,
-                _stream(dev))
+                int(bool(ids_sorted)),
+                None if scratch is None else scratch.data_ptr(), _stream(dev))
     return out
 
 

@@ -37,12 +37,16 @@ def _cuda(t: torch.Tensor) -> bool:
 
 
 def segment_sum(seg_ids: torch.Tensor, values: torch.Tensor,
-                num_segments: int) -> torch.Tensor:
-    """``sums[s] = Σ values[i]`` over ``seg_ids[i] == s``, in float64."""
+                num_segments: int, ids_sorted: bool = False) -> torch.Tensor:
+    """``sums[s] = Σ values[i]`` over ``seg_ids[i] == s``, in float64, each
+    segment summed in ascending row order (the reference's bits).
+    ``ids_sorted``: the caller's word that each segment's rows are
+    contiguous; the card then skips the grouping pass (and gives wrong
+    sums if the word is wrong).  The plain version does not need it."""
     seg = seg_ids.to(torch.int32).contiguous()
     vals = values.to(torch.float64).contiguous()
     if _cuda(seg):
-        return _k.segment_sum(seg, vals, num_segments)
+        return _k.segment_sum(seg, vals, num_segments, ids_sorted)
     return _ref.segment_sum_ref(seg, vals, num_segments)
 
 

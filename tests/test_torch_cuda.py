@@ -13,8 +13,6 @@ torch = pytest.importorskip("torch")
 
 pytestmark = pytest.mark.cuda
 
-RTOL = 1e-12  # float64 sums whose atomics land in another order
-
 
 @pytest.fixture
 def dev():
@@ -30,7 +28,8 @@ def _t(a, dev):
 
 def test_kernels_match_plain_versions(dev):
     """Each kernel against its plain version: integers exact, float64 sums
-    within rtol 1e-12; out-of-range ids and codes included."""
+    bit for bit (the plain version on the CPU sums each segment in row
+    order, as the kernel does); out-of-range ids and codes included."""
     from repro_torch.kernels.segment_join import kernel, ref
 
     rng = np.random.default_rng(5)
@@ -48,9 +47,65 @@ def test_kernels_match_plain_versions(dev):
         assert torch.equal(g, w)
     seg = _t(np.sort(rng.integers(-3, 500, 40_000)).astype(np.int32), dev)
     val = _t(rng.normal(size=40_000), dev)
-    torch.testing.assert_close(kernel.segment_sum(seg, val, 512),
-                               ref.segment_sum_ref(seg, val, 512),
-                               rtol=RTOL, atol=1e-12)
+    for ids_sorted in (True, False):
+        torch.testing.assert_close(
+            kernel.segment_sum(seg, val, 512, ids_sorted).cpu(),
+            ref.segment_sum_ref(seg.cpu(), val.cpu(), 512), rtol=0, atol=0)
+
+
+def _segment_ids(case, n, rng):
+    """Segment ids (int32) of ``n`` rows into 1000 segments, and whether
+    each segment's rows are contiguous."""
+    if case == "sorted":
+        return np.sort(rng.integers(0, 1000, n)), True
+    if case == "unsorted":
+        return rng.integers(0, 1000, n), False
+    if case == "out_of_range_sorted":
+        return np.sort(rng.integers(-5, 1010, n)), True
+    if case == "out_of_range":
+        return rng.integers(-5, 1010, n), False
+    if case == "half_in_one":   # one segment holds half the rows
+        a = np.sort(rng.integers(0, 1000, n))
+        a[n // 4: n // 4 + n // 2] = a[n // 4]
+        return np.sort(a), True
+    if case == "half_in_one_unsorted":
+        a = rng.integers(0, 1000, n)
+        a[rng.permutation(n)[: n // 2]] = 7
+        return a, False
+    if case == "runs_across_tiles":  # runs of 1..399 rows, then dropped ids
+        a = np.repeat(np.arange(1000), rng.integers(1, 400, 1000))
+        return np.concatenate([a, np.full(max(0, n - len(a)), 1003)])[:n], True
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize("case", [
+    "sorted", "unsorted", "out_of_range_sorted", "out_of_range",
+    "half_in_one", "half_in_one_unsorted", "runs_across_tiles"])
+@pytest.mark.parametrize("n", [1, 33, 200_001])
+def test_segment_sum_sums_in_row_order(dev, case, n):
+    """The card's float64 segment sum has the bits of the plain version on
+    the CPU (each segment summed in ascending row order from +0.0, the
+    reference's answer) for non-integer values, sorted ids (the GROUP BY's)
+    and any others, ids out of range included, and the same bits on ten
+    runs; one launch per call."""
+    from repro_torch import device as D
+    from repro_torch.kernels.segment_join import kernel, ref
+
+    rng = np.random.default_rng(n)
+    ids, contiguous = _segment_ids(case, n, rng)
+    vals = rng.normal(size=n) * 10.0 ** rng.integers(-3, 4, n)
+    seg_c = torch.from_numpy(ids.astype(np.int32))
+    val_c = torch.from_numpy(vals)
+    want = ref.segment_sum_ref(seg_c, val_c, 1000)
+    seg, val = seg_c.to(dev), val_c.to(dev)
+    flags = (True, False) if contiguous else (False,)
+    for ids_sorted in flags:
+        D.reset_launch_counts()
+        runs = [kernel.segment_sum(seg, val, 1000, ids_sorted).cpu()
+                for _ in range(10)]
+        assert D.launch_counts()["segment_sum"] == 10
+        for got in runs:
+            assert torch.equal(got.view(torch.int64), want.view(torch.int64))
 
 
 def test_radix_rank_past_shared_memory(dev):
@@ -420,8 +475,8 @@ def _attn_inputs(B, Sq, Sk, H, KH, D, Dv, dtype, dev, seed=0):
     ((2, 130, 130, 4, 2, 32, 32), {"causal": False, "window": 17}),
 ])
 def test_flash_attention_matches_plain_version(dev, dtype, tol, shape, kw):
-    """bfloat16 launches the tensor-core kernel, float32 the SIMT kernel;
-    each once, the other never."""
+    """bfloat16 launches the wgmma kernel, float32 the 3xTF32 kernel; each
+    once, the other never."""
     from repro_torch import device as D
     from repro_torch.kernels.flash_attention import kernel, ref
 
@@ -441,9 +496,10 @@ def test_flash_attention_matches_plain_version(dev, dtype, tol, shape, kw):
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
-# bf16 on the tensor-core kernel: each output within 2e-3 + 2^-6 * |plain|,
-# two bf16 steps of its own size (as chip_smoke.py holds the main shape)
-@pytest.mark.parametrize("shape,kw", [
+# the tensor-core kernels' cases: Sq != Sk, padded D and Dv, Gemma-2's
+# window and soft-cap, rows with no visible key, H/KH = 8, ragged tiles, and
+# D 192, 16 and 256
+_TENSOR_CORE_CASES = [
     ((1, 200, 333, 16, 2, 128, 128), {"q_offset": 133}),      # Sq != Sk
     ((1, 300, 300, 4, 2, 80, 96), {}),                       # padded D, Dv
     ((1, 1024, 1024, 16, 8, 256, 256), {"window": 512,
@@ -455,7 +511,12 @@ def test_flash_attention_matches_plain_version(dev, dtype, tol, shape, kw):
     ((1, 130, 257, 4, 2, 192, 192), {"window": 100}),        # 3 D tiles
     ((1, 70, 70, 2, 1, 16, 16), {}),                         # D = 16
     ((1, 100, 100, 4, 4, 256, 64), {"causal": False}),       # D 256, Dv 64
-])
+]
+
+
+# bf16 on the tensor-core kernel: each output within 2e-3 + 2^-6 * |plain|,
+# two bf16 steps of its own size (as chip_smoke.py holds the main shape)
+@pytest.mark.parametrize("shape,kw", _TENSOR_CORE_CASES)
 def test_flash_attention_bf16_tensor_core_cases(dev, shape, kw):
     from repro_torch import device as D
     from repro_torch.kernels.flash_attention import kernel, ref
@@ -472,6 +533,32 @@ def test_flash_attention_bf16_tensor_core_cases(dev, shape, kw):
     assert got.shape == (B, Sq, H, Dv)
     torch.testing.assert_close(got.float(), want.float(), rtol=2.0 ** -6,
                                atol=2e-3)
+
+
+# float32 on the 3xTF32 kernel, within the reference's float32 tolerance
+# (2e-5), over the same cases and three decode steps (one query row per
+# sequence, G = 4, 8 and 2 query heads on each kv head)
+@pytest.mark.parametrize("shape,kw", _TENSOR_CORE_CASES + [
+    ((4, 1, 300, 32, 8, 128, 128), {"q_offset": 299}),          # G 4
+    ((2, 1, 500, 32, 4, 128, 128), {"q_offset": 499}),          # G 8
+    ((2, 1, 257, 16, 8, 256, 256), {"q_offset": 256, "window": 100,
+                                    "cap": 50.0}),              # G 2
+])
+def test_flash_attention_f32_tensor_core_cases(dev, shape, kw):
+    from repro_torch import device as D
+    from repro_torch.kernels.flash_attention import kernel, ref
+
+    B, Sq, Sk, H, KH, Dh, Dv = shape
+    q, k, v = _attn_inputs(B, Sq, Sk, H, KH, Dh, Dv, torch.float32, dev,
+                           seed=Sq + Sk)
+    kw = dict({"causal": True, "scale": Dh ** -0.5}, **kw)
+    D.reset_launch_counts()
+    got = kernel.flash_attention_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert D.launch_counts()["flash_attention_f32"] == 1
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    assert got.dtype == torch.float32 and got.shape == (B, Sq, H, Dv)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
 
 
 def test_flash_attention_bf16_reads_strided_views(dev):
@@ -544,6 +631,149 @@ def test_moe_dispatch_and_combine_match_plain_versions(dev, dtype, tol):
                                atol=tol)
 
 
+def _routing_views(T, E, C, rng, dev):
+    """Columns of a ``[T, 2]`` routing as the layer body hands them over:
+    int64 expert ids and int32 slots, strided views, some out of range."""
+    e = _t(rng.integers(-1, E + 1, (T, 2)).astype(np.int64), dev)
+    s = _t(rng.integers(-1, C + C // 4 + 1, (T, 2)).astype(np.int32), dev)
+    return e, s
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,d,E,C", [(4, 4096, 16, 16),    # a decode step
+                                     (3000, 520, 8, 300),  # past the scan
+                                     (257, 136, 4, 80)])
+def test_moe_dispatch_reads_routing_views_and_adds_into(dev, dtype, T, d, E,
+                                                        C):
+    """The dispatch takes the routing's int64 and int32 column views as
+    they come, and adds a second slot into the first slot's buffer with the
+    rounding of ``buf + b``: both exact against the plain version."""
+    from repro_torch import device as D
+    from repro_torch.kernels.moe_dispatch import kernel, ref
+
+    rng = np.random.default_rng(T + d)
+    x = _t(rng.normal(size=(T, d)).astype(np.float32), dev).to(dtype)
+    e, s = _routing_views(T, E, C, rng, dev)
+    assert not e[:, 0].is_contiguous() and e.dtype == torch.int64
+    D.reset_launch_counts()
+    buf = kernel.moe_dispatch(x, e[:, 0], s[:, 0], E, C)
+    want = ref.dispatch_ref(x, e[:, 0], s[:, 0], E, C)
+    assert torch.equal(buf, want)
+    got = kernel.moe_dispatch(x, e[:, 1], s[:, 1], E, C, into=buf)
+    assert got.data_ptr() == buf.data_ptr()
+    assert torch.equal(got, want + ref.dispatch_ref(x, e[:, 1], s[:, 1], E,
+                                                    C))
+    assert D.launch_counts()["moe_dispatch"] == 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_dispatch_workspace_across_shrinking_and_growing_calls(dev,
+                                                                  dtype):
+    """Past the scan limit the dispatch keeps a workspace that only grows;
+    calls at E*C rows of 3200, then 1600, then 3200 again, on one stream,
+    each exact in the layer body's form (slot 0, then slot 1 added in).
+    Token 1 goes to expert 1 in the smaller call, so that a token the
+    smaller call leaves in the workspace would land where the larger call
+    reads an empty row's count."""
+    from repro_torch.kernels.moe_dispatch import kernel, ops, ref
+
+    rng = np.random.default_rng(31)
+    T, d, E = 300, 136, 8
+    x = _t(rng.normal(size=(T, d)).astype(np.float32), dev).to(dtype)
+    for C in (400, 200, 400):
+        first = rng.integers(0, E, T)
+        idx = np.stack([first, (first + rng.integers(1, E, T)) % E], 1)
+        idx[1] = (1, 2)
+        topk = _t(idx.astype(np.int64), dev)
+        slot = ops.expert_slots(topk, E)
+        buf = kernel.moe_dispatch(x, topk[:, 0], slot[:, 0], E, C)
+        want = ref.dispatch_ref(x, topk[:, 0], slot[:, 0], E, C)
+        assert torch.equal(buf, want), C
+        got = kernel.moe_dispatch(x, topk[:, 1], slot[:, 1], E, C, into=buf)
+        assert torch.equal(got, want + ref.dispatch_ref(
+            x, topk[:, 1], slot[:, 1], E, C)), C
+
+
+@pytest.mark.parametrize("T,kernels", [(4, 1), (8192, 2)])
+def test_moe_dispatch_launch_count_per_call(dev, T, kernels):
+    """One dispatch call launches one kernel at the decode shape and two at
+    the prefill's, and no memset or copy (the profiler's device events)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.moe_dispatch import kernel
+
+    rng = np.random.default_rng(T)
+    E, d = 16, 4096
+    C = max(16, T * 2 * 5 // (4 * E))
+    x = _t(rng.normal(size=(T, d)).astype(np.float32), dev).to(
+        torch.bfloat16)
+    e, s = _routing_views(T, E, C, rng, dev)
+    kernel.moe_dispatch(x, e[:, 0], s[:, 0], E, C)  # workspace made here
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        kernel.moe_dispatch(x, e[:, 0], s[:, 0], E, C)
+        torch.cuda.synchronize()
+    device_events = [ev.name for ev in prof.events()
+                     if ev.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(device_events) == kernels, device_events
+    assert all("dispatch" in name for name in device_events), device_events
+
+
+def test_group_by_hands_the_card_sorted_ids(dev, monkeypatch):
+    """The GROUP BY on the card passes ``ids_sorted=True`` with ids that
+    never decrease (the kernel does not check them), and its relation
+    equals the CPU's."""
+    from repro_torch.core import Session, tensor_engine
+
+    calls = []
+    real = tensor_engine.segment_sum_dispatch
+
+    def spy(values, seg_ids, num_segments, ids_sorted=False):
+        calls.append((ids_sorted, seg_ids.device.type,
+                      bool((seg_ids[1:] >= seg_ids[:-1]).all())))
+        return real(values, seg_ids, num_segments, ids_sorted)
+
+    monkeypatch.setattr(tensor_engine, "segment_sum_dispatch", spy)
+    rng = np.random.default_rng(47)
+    n = 50_000
+    table = {"g": rng.integers(0, 900, n).astype(np.int64),
+             "w": rng.normal(size=n), "c": rng.integers(0, 9, n)}
+    out = {}
+    for device in ("cuda", "cpu"):
+        sess = Session(work_mem=1 << 20, policy="tensor", device=device)
+        sess.register("t", table)
+        res = sess.table("t").group_by("g", {"w": "sum",
+                                             "c": "count"}).collect()
+        out[device] = res.relation
+    cuda_calls = [c for c in calls if c[1] == "cuda"]
+    assert cuda_calls and all(s and inc for s, _, inc in cuda_calls)
+    assert out["cuda"].equals(out["cpu"])
+
+
+def test_unsigned_aggregates_on_card_match_cpu(dev):
+    """GROUP BY sum, count, min and max over uint32 and uint64 columns:
+    the card gives the CPU's relation, bit for bit."""
+    from repro_torch.core import Session
+
+    rng = np.random.default_rng(43)
+    n = 60_000
+    table = {"g": rng.integers(0, 700, n).astype(np.int64),
+             "u32": rng.integers(0, 1 << 32, n,
+                                 dtype=np.uint64).astype(np.uint32),
+             "u64": rng.integers(0, 1 << 63, n, dtype=np.uint64)
+             * np.uint64(2) + np.uint64(1)}
+    out = {}
+    for name in ("cuda", "cpu"):
+        sess = Session(work_mem=1 << 20, policy="tensor", device=name)
+        sess.register("t", table)
+        out[name] = {fn: sess.table("t").group_by(
+            "g", {"u32": fn, "u64": fn}).collect().relation
+            for fn in ("sum", "count", "min", "max")}
+    for fn in out["cpu"]:
+        assert out["cuda"][fn].equals(out["cpu"][fn]), fn
+
+
 @pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "yi-9b",
                                   "gemma2-9b"])
 def test_smoke_prefill_and_generate_on_card_match_cpu(dev, arch):
@@ -568,7 +798,7 @@ def test_smoke_prefill_and_generate_on_card_match_cpu(dev, arch):
         logits, _ = make_prefill_step(cfg)(p, batch)
         out[where] = (logits.cpu(), generate(p, cfg, toks[:, :8], 6))
     counts = D.launch_counts()
-    assert counts["flash_attention_f32"] > 0  # float32: the SIMT kernel
+    assert counts["flash_attention_f32"] > 0  # float32: the 3xTF32 kernel
     if cfg.uses_moe:
         assert counts["moe_dispatch"] > 0 and counts["moe_combine"] > 0
     torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=2e-4,
