@@ -2,10 +2,14 @@
 """Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
 
 Run from the root of a checkout:  ``python3 chip_smoke.py [--seed 0]
-[--profile]``.  ``--only moe-dispatch`` or ``--only lm`` runs one phase
-alone (the dispatch call's times, or phase 6) and ``--tree DIR`` drives
-another checkout's package with it: to compare two commits, run each in
-its own process, in turns on one card (parent, change, change, parent).
+[--profile]``.  ``--only PHASE`` runs one phase alone and ``--tree DIR``
+drives another checkout's package with it: to compare two commits, run
+each in its own process, in turns on one card (parent, change, change,
+parent).  The phases: ``moe-dispatch`` (the layer body's dispatch call),
+``moe-layer`` (the layer body with an identity FFN: dispatch, combine and
+the routing's slots), each at the decode and prefill shapes;
+``join-build`` (the table build at Q-a's build shape, then Q-a and Q-b
+warm and traced); ``lm`` (phase 6).
 
 Phases (any mismatch or exception ends the run with a non-zero exit code):
 
@@ -18,13 +22,17 @@ Phases (any mismatch or exception ends the run with a non-zero exit code):
    library call that computes the same function, beside the least time the
    card could take for the bytes moved; ``radix_rank`` at the join's build
    and probe sides, ``radix_sort_pass`` with the digit passes that ran and
-   on columns that vary in chosen digits only, ``segment_sum`` bit for bit
+   on columns that vary in chosen digits only, ``join_table_build`` as the
+   main path hands it over and without its padding rows, in random order
+   and with all or half the rows at one code, ``segment_sum`` bit for bit
    against its plain version on the CPU on non-integer values (sorted,
    with one segment holding half the rows, and unsorted) and on ones (the
    counts), float32 flash
-   attention against SDPA, and the MoE kernels also at the decode shape
-   (device time from the profiler's kernel times, host time a call, and
-   the library call's);
+   attention against SDPA, the combine over both routing slots of the
+   layer (one launch, against the plain version and the single-slot
+   kernels added in turn), and the MoE kernels with device time from the
+   profiler's kernel times at both shapes, host time a call at the decode
+   shape, and the library call's;
 3. the main path, ``repro_torch.core.Session(policy="tensor",
    device="cuda")``, on a TPC-H SF1 deployment made with numpy from
    ``--seed``: (Q-a) lineitem ⋈ orders → filter → sort → sum, (Q-b) the same
@@ -316,18 +324,20 @@ def int_err(got, want) -> int:
                for g, w in zip(got, want))
 
 
-def kernel_phase(orders, lineitem, dev):
-    """Each kernel on the main path's inputs: the probe and build codes the
-    fused dense join hands the radix probe (planned by the engine's own
-    ``_host_plan``), and the segment ids and values of the GROUP BY."""
+def join_inputs(orders, lineitem, dev) -> dict:
+    """The codes the fused dense join hands the radix probe at Q-a's shape
+    (planned by the engine's own ``_host_plan``): each side padded to its
+    capacity bucket, padding and dead rows at the dead slot ``domain``;
+    and the build side in radix order (``bk_ord``, ``brow``), as
+    ``radix_hash_probe`` hands it to ``join_table_build``.  Calls only what
+    every slice of the port offers."""
     import numpy as np
     import torch
 
     from repro_torch.core import Relation
     from repro_torch.core.fused import _host_plan
     from repro_torch.core.tensor_engine import capacity_bucket
-    from repro_torch.kernels.segment_join import kernel as K
-    from repro_torch.kernels.segment_join import ops, ref
+    from repro_torch.kernels.segment_join import ops
 
     build = Relation(dict(orders))
     probe = Relation(dict(lineitem))
@@ -343,13 +353,69 @@ def kernel_phase(orders, lineitem, dev):
             & (k0 < domain)
         return torch.where(live, k0, domain).to(torch.int32)
 
-    bk0c = codes(orders["orderkey"], len(build))
-    pk0c = codes(lineitem["orderkey"], len(probe))
+    j = {"domain": domain, "bk0c": codes(orders["orderkey"], len(build)),
+         "pk0c": codes(lineitem["orderkey"], len(probe))}
     dblk = ops.probe_block_size(domain)
-    shift = dblk.bit_length() - 1
-    nblocks = -(-(domain + 1) // dblk)
-    ids_b = (bk0c >> shift).contiguous()
-    ids_p = (pk0c >> shift).contiguous()
+    j["shift"] = dblk.bit_length() - 1
+    j["nblocks"] = -(-(domain + 1) // dblk)
+    j["dpad"] = j["nblocks"] * dblk
+    j["ids_b"] = (j["bk0c"] >> j["shift"]).contiguous()
+    j["ids_p"] = (j["pk0c"] >> j["shift"]).contiguous()
+    bdest, _ = ops.radix_partition(j["ids_b"], j["nblocks"])
+    j["bk_ord"], j["brow"] = ops._order(j["bk0c"], bdest)
+    return j
+
+
+def table_build_cases(K, ref, j, dev) -> dict:
+    """``join_table_build`` at Q-a's build shape: as the main path hands it
+    over (radix order, 28% of the rows at the dead slot), without the
+    padding rows, in random order, and with all or half the rows at one
+    code (random order).  Each held bit for bit against the plain version;
+    returns {case: CUDA-event ms}."""
+    import torch
+
+    bk, brow, dpad = j["bk_ord"], j["brow"], j["dpad"]
+    gen = torch.Generator(device=dev).manual_seed(11)
+    n = bk.numel()
+    shuffle = torch.randperm(n, generator=gen, device=dev)
+    half = torch.randperm(n, generator=gen, device=dev)[: n // 2]
+    keep = bk != j["domain"]
+    rows = brow[shuffle].contiguous()
+    cases = {
+        "main_path": (bk, brow),
+        "no_padding": (bk[keep].contiguous(), brow[keep].contiguous()),
+        "random_order": (bk[shuffle].contiguous(), rows),
+        "all_one_code": (torch.full_like(bk, 12345), rows),
+        "half_one_code": (bk[shuffle].index_fill(0, half, 12345).contiguous(),
+                          rows),
+    }
+    out = {}
+    for what, (b, r) in cases.items():
+        got = K.join_table_build(b, r, dpad)
+        want = ref.join_table_build_ref(b, r, dpad)
+        for g, w in zip(got, want):
+            if not torch.equal(g, w):
+                fail(f"join_table_build ({what}) disagrees with its plain "
+                     f"version")
+        out[what] = time_ms(lambda: K.join_table_build(b, r, dpad))
+        print(f"join_table_build {what}: n={b.numel()}, slots={dpad}: "
+              f"{out[what]:.4f} ms, equal to the plain version", flush=True)
+    return out
+
+
+def kernel_phase(orders, lineitem, dev):
+    """Each kernel on the main path's inputs: the probe and build codes the
+    fused dense join hands the radix probe (``join_inputs``), and the
+    segment ids and values of the GROUP BY."""
+    import torch
+
+    from repro_torch.kernels.segment_join import kernel as K
+    from repro_torch.kernels.segment_join import ops, ref
+
+    j = join_inputs(orders, lineitem, dev)
+    pk0c, domain = j["pk0c"], j["domain"]
+    nblocks, dpad = j["nblocks"], j["dpad"]
+    ids_b, ids_p = j["ids_b"], j["ids_p"]
     rows = []
 
     # radix_rank at the probe side's shape and the build side's, each
@@ -384,16 +450,12 @@ def kernel_phase(orders, lineitem, dev):
                  "shape": f"n={n}, buckets={nblocks} (build side "
                           f"n={ids_b.numel()}: {rank_ms['build']:.4f} ms)"})
 
-    # table build over the radix-ordered build side
-    bdest, _ = ops.radix_partition(ids_b, nblocks)
-    bk_ord, brow = ops._order(bk0c, bdest)
-    dpad = nblocks * dblk
+    # table build over the radix-ordered build side, and its other cases
+    bk_ord, brow = j["bk_ord"], j["brow"]
     got = K.join_table_build(bk_ord, brow, dpad)
     want = ref.join_table_build_ref(bk_ord, brow, dpad)
     err = int_err(got, want)
-    for g, w in zip(got, want):
-        if not torch.equal(g, w):
-            fail("join_table_build disagrees with its plain version")
+    build_ms = table_build_cases(K, ref, j, dev)
     cnt_t, inv_t = got
     code_l = bk_ord.long()
     live = (bk_ord >= 0) & (bk_ord < dpad)
@@ -412,13 +474,16 @@ def kernel_phase(orders, lineitem, dev):
     rows.append({"name": "join_table_build", "route": "cuda",
                  "source": "src/repro_torch/csrc/segment_join.cu",
                  "replaces": "src/repro/kernels/segment_join/kernel.py:161",
-                 "max_abs_err": err,
-                 "ms": time_ms(lambda: K.join_table_build(bk_ord, brow, dpad)),
+                 "max_abs_err": err, "ms": build_ms["main_path"],
                  "plain_ms": time_ms(lambda: ref.join_table_build_ref(
                      bk_ord, brow, dpad)),
                  "bound_ms": t_b, "bound_by": by,
                  "library_ms": time_ms(lib_build),
-                 "shape": f"n={n}, slots={dpad}"})
+                 "cases_ms": build_ms,
+                 "shape": f"n={n}, slots={dpad}, "
+                          f"{int((bk_ord == domain).sum())} rows at the "
+                          f"dead slot (without them: "
+                          f"{build_ms['no_padding']:.4f} ms)"})
 
     # table probe over the radix-ordered probe side
     pdest, _ = ops.radix_partition(ids_p, nblocks)
@@ -747,10 +812,9 @@ def lm_kernel_phase(dev, seed: int):
                  FR.flash_attention_ref(q, k, v, **kw),
                  f"D=256, window=512, cap=50, {dtype}")
 
-    # dispatch and combine on one routing slot of a real top-2 routing; the
-    # dispatch reads the routing's column views as the layer body hands
-    # them over (int64 experts, int32 slots, stride 2), the combine int32
-    # copies (ops.combine makes them)
+    # dispatch on one routing slot of a real top-2 routing, reading the
+    # routing's column views as the layer body hands them over (int64
+    # experts, int32 slots, stride 2)
     cfg = get_config(LM_ARCH)
     T, d, E = PREFILL_BATCH * PREFILL_LEN, cfg.d_model, cfg.num_experts
     C = capacity_per_expert(T, E, cfg.experts_per_token, cfg.capacity_factor)
@@ -761,7 +825,6 @@ def lm_kernel_phase(dev, seed: int):
     e_view, s_view = topk_idx[:, 0], slot[:, 0]
     eidx = e_view.to(torch.int32).contiguous()
     sl = s_view.contiguous()
-    w = topk_w[:, 0].contiguous()
     buf = MK.moe_dispatch(x, e_view, s_view, E, C)
     err = float((buf.float() - MR.dispatch_ref(x, eidx, sl, E, C).float())
                 .abs().max())
@@ -794,26 +857,58 @@ def lm_kernel_phase(dev, seed: int):
                  "library_ms": time_ms(lib_dispatch),
                  "shape": f"T={T}, d={d}, E={E}, C={C}, bf16, {kept} "
                           f"routed rows, routing column views"})
-    y = MK.moe_combine(buf, eidx, sl, w)
-    err = float((y.float() - MR.combine_ref(buf, eidx, sl, w).float())
-                .abs().max())
-    if err != 0.0:
-        fail(f"moe_combine disagrees with its plain version: {err}")
-    flat = buf.reshape(E * C, d)
-    rows_c = rows_all.clamp_max(E * C - 1)
-    w_b = w.to(buf.dtype)[:, None]
-    t_b, by = bound(kept * d * 2 + T * 12 + T * d * 2, T * d)
+    # the combine of the layer body: all k slots of the routing as the
+    # layer has it (int64 experts and float32 weights as column slices,
+    # int32 slots) over the buffer both slots were dispatched into, at the
+    # prefill's shape and at the decode shape; held bit for bit against the
+    # plain version and against the k single-slot kernels added in turn
+    def combine_case(xs, idx, wk, Cs):
+        sk = MO.expert_slots(idx, E)
+        b = MK.moe_dispatch(xs, idx[:, 0], sk[:, 0], E, Cs)
+        for j in range(1, idx.shape[1]):
+            b = MK.moe_dispatch(xs, idx[:, j], sk[:, j], E, Cs, into=b)
+        y = MO.combine_slots(b, idx, sk, wk)
+        want = MR.combine_slots_ref(b, idx, sk, wk)
+        two_call = None
+        for j in range(idx.shape[1]):
+            c = MK.moe_combine(b, idx[:, j], sk[:, j], wk[:, j])
+            two_call = c if two_call is None else two_call + c
+        err = float((y.float() - want.float()).abs().max())
+        if not (torch.equal(y, want) and torch.equal(y, two_call)):
+            fail(f"moe_combine over {idx.shape[1]} slots disagrees with its "
+                 f"plain version at T={xs.shape[0]} (max |err| {err})")
+        keep = sk < Cs
+        flat = b.reshape(E * Cs, d)
+        rows_k = torch.where(keep, idx * Cs + sk, 0).reshape(-1)
+        w_b = torch.where(keep, wk.to(b.dtype), 0)[..., None]
+        T_, k_ = idx.shape
+
+        def library():  # index_select · mul · add
+            g = torch.index_select(flat, 0, rows_k).view(T_, k_, d) * w_b
+            out = g[:, 0]
+            for j in range(1, k_):
+                out = out + g[:, j]
+            return out
+
+        kept_k = int(keep.sum())
+        return (lambda: MO.combine_slots(b, idx, sk, wk), library,
+                bound(kept_k * d * 2 + T_ * k_ * 16 + T_ * d * 2,
+                      (2 * k_ - 1) * T_ * d), kept_k, err)
+
+    call, lib_combine, (t_b, by), kept_k, combine_err = combine_case(
+        x, topk_idx, topk_w, C)
     rows.append({"name": "moe_combine", "route": "cuda",
                  "source": "src/repro_torch/csrc/moe_dispatch.cu",
                  "replaces": "src/repro/kernels/moe_dispatch/kernel.py:98",
-                 "max_abs_err": err,
-                 "ms": time_ms(lambda: MK.moe_combine(buf, eidx, sl, w)),
-                 "plain_ms": time_ms(lambda: MR.combine_ref(buf, eidx, sl,
-                                                            w)),
+                 "max_abs_err": combine_err, "ms": time_ms(call),
+                 "plain_ms": time_ms(lambda: MR.combine_slots_ref(
+                     both, topk_idx, slot, topk_w)),
                  "bound_ms": t_b, "bound_by": by,
-                 "library_ms": time_ms(
-                     lambda: torch.index_select(flat, 0, rows_c) * w_b),
-                 "shape": f"T={T}, d={d}, E={E}, C={C}, bf16"})
+                 "library_ms": time_ms(lib_combine),
+                 "shape": f"T={T}, d={d}, E={E}, C={C}, bf16, all "
+                          f"{topk_idx.shape[1]} slots, {kept_k} routed "
+                          f"rows"})
+    prefill_combine = (call, lib_combine)
     # decode shape: one token per request of a batch of SERVE_BATCH, as
     # every decode step of phase 6 dispatches them (most of the launches)
     T4 = SERVE_BATCH
@@ -825,29 +920,24 @@ def lm_kernel_phase(dev, seed: int):
     ev4, sv4 = idx4[:, 0], slot4[:, 0]
     e4 = ev4.to(torch.int32).contiguous()
     s4 = sv4.contiguous()
-    w4 = w4[:, 0].contiguous()
     buf4 = MK.moe_dispatch(x4, ev4, sv4, E, C4)
-    y4 = MK.moe_combine(buf4, e4, s4, w4)
-    if not (torch.equal(buf4, MR.dispatch_ref(x4, e4, s4, E, C4))
-            and torch.equal(y4, MR.combine_ref(buf4, e4, s4, w4))):
-        fail("moe_dispatch/moe_combine disagree with their plain versions "
-             "at decode shape")
+    if not torch.equal(buf4, MR.dispatch_ref(x4, e4, s4, E, C4)):
+        fail("moe_dispatch disagrees with its plain version at decode shape")
     kept4 = int((s4 < C4).sum())
-    keep4 = s4 < C4
-    rows4 = torch.where(keep4, e4.long() * C4 + s4.long(), E * C4)
+    rows4 = torch.where(s4 < C4, e4.long() * C4 + s4.long(), E * C4)
     lib4 = torch.zeros((E * C4 + 1, d), dtype=x4.dtype, device=dev)
-    flat4 = buf4.reshape(E * C4, d)
-    rows4c = rows4.clamp_max(E * C4 - 1)
-    w4b = w4.to(buf4.dtype)[:, None]
+    call4, lib_combine4, bound4, kept4c, err4 = combine_case(x4, idx4, w4, C4)
+    for r in rows:  # the larger of the prefill and decode readings
+        if r["name"] == "moe_combine":
+            r["max_abs_err"] = max(r["max_abs_err"], err4)
+    kept_at_decode = {"moe_dispatch": f"slot 0, {kept4} routed rows",
+                      "moe_combine": f"both slots, {kept4c} routed rows"}
     decode = {
         "moe_dispatch": (
             lambda: MK.moe_dispatch(x4, ev4, sv4, E, C4),
             lambda: lib4.zero_().index_put_((rows4,), x4, accumulate=True),
             bound(kept4 * d * 2 + T4 * 8 + E * C4 * d * 2, kept4 * d)),
-        "moe_combine": (
-            lambda: MK.moe_combine(buf4, e4, s4, w4),
-            lambda: torch.index_select(flat4, 0, rows4c) * w4b,
-            bound(kept4 * d * 2 + T4 * 12 + T4 * d * 2, T4 * d)),
+        "moe_combine": (call4, lib_combine4, bound4),
     }
     # host times first, for every call: the profiler's tracing is not
     # running then
@@ -858,30 +948,33 @@ def lm_kernel_phase(dev, seed: int):
             call, library, (t_b, by) = decode[r["name"]]
             host_ms, lib_host_ms = host[r["name"]]
             dev_ms, n_kernels = device_ms_per_call(call, r["name"])
-            lib_dev_ms, _ = device_ms_per_call(library, None)
+            lib_dev_ms, lib_kernels = device_ms_per_call(library, None)
             r.update(decode_device_ms=dev_ms, decode_host_ms=host_ms,
                      decode_library_device_ms=lib_dev_ms,
                      decode_library_host_ms=lib_host_ms,
                      decode_kernels_per_call=n_kernels,
                      decode_bound_ms=t_b)
             print(f"{r['name']} at decode shape (T={T4}, d={d}, E={E}, "
-                  f"C={C4}, bf16, {kept4} routed rows): device "
-                  f"{dev_ms:.6f} ms a call ({n_kernels} kernels), host "
-                  f"{host_ms:.4f} ms a call; library device "
-                  f"{lib_dev_ms:.6f} ms, host {lib_host_ms:.4f} ms; bound "
-                  f"{t_b:.6f} ms by {by}", flush=True)
+                  f"C={C4}, bf16, {kept_at_decode[r['name']]}): device "
+                  f"{dev_ms:.6f} ms a call ({n_kernels} kernels), "
+                  f"host {host_ms:.4f} ms a call; library device "
+                  f"{lib_dev_ms:.6f} ms ({lib_kernels} kernels), host "
+                  f"{lib_host_ms:.4f} ms; bound {t_b:.6f} ms by {by}",
+                  flush=True)
     # the prefill shape's device time, from the profiler (CUDA events around
     # one call also time the host's enqueue while the card waits)
+    prefill = {"moe_dispatch": (lambda: MK.moe_dispatch(x, e_view, s_view, E,
+                                                        C), lib_dispatch),
+               "moe_combine": prefill_combine}
     for r in rows:
-        if r["name"] == "moe_dispatch":
+        if r["name"] in prefill:
+            call, library = prefill[r["name"]]
             r["device_ms"], r["kernels_per_call"] = device_ms_per_call(
-                lambda: MK.moe_dispatch(x, e_view, s_view, E, C),
-                "moe_dispatch", 20)
-            r["library_device_ms"], _ = device_ms_per_call(lib_dispatch,
-                                                           None, 20)
-            print(f"moe_dispatch at the prefill shape: device "
+                call, r["name"], 20)
+            r["library_device_ms"], _ = device_ms_per_call(library, None, 20)
+            print(f"{r['name']} at the prefill shape: device "
                   f"{r['device_ms']:.4f} ms a call ({r['kernels_per_call']} "
-                  f"kernels), index_put_ device "
+                  f"kernels), library device "
                   f"{r['library_device_ms']:.4f} ms", flush=True)
     # duplicate and dropped slots, float32: exact
     xs = randn(2000, 256, dtype=torch.float32)
@@ -936,20 +1029,149 @@ def dispatch_calls(dev, seed: int) -> dict:
     return out
 
 
+def moe_layer_calls(dev, seed: int) -> dict:
+    """``--only moe-layer``: the MoE layer body with an identity FFN,
+    ``ops.moe_dispatch(params, x, topk_idx, topk_w, cfg, C, lambda p, b, c:
+    b)`` on a real top-2 routing at phase 6's decode shape (4 tokens, C 16)
+    and prefill shape (8192 tokens, C 1280), d 4096, E 16, bf16: the device
+    time and kernels a call (profiler), the MoE kernels' launches a call,
+    the host time a call, and CUDA events around one call; exact against
+    the plain versions' composition (the layer body's loop of
+    ``dispatch_ref``, ``combine_ref`` and adds).  It calls only what every
+    slice of the port offers, so that two checkouts can be timed in
+    turns."""
+    import torch
+
+    from repro_torch import device as D
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.moe_dispatch import ops as MO
+    from repro_torch.kernels.moe_dispatch import ref as MR
+    from repro_torch.models.moe import _route, capacity_per_expert
+
+    cfg = get_config(LM_ARCH)
+    d, E, k = cfg.d_model, cfg.num_experts, cfg.experts_per_token
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    router = torch.randn((d, E), generator=gen, device=dev) / d ** 0.5
+    out = {}
+    for shape, T, calls in (("decode", SERVE_BATCH, DECODE_CALLS),
+                            ("prefill", PREFILL_BATCH * PREFILL_LEN, 20)):
+        C = capacity_per_expert(T, E, k, cfg.capacity_factor)
+        x = torch.randn((T, d), generator=gen, device=dev).to(torch.bfloat16)
+        topk_idx, topk_w, _ = _route({"router": router}, x, cfg)
+
+        def call():
+            return MO.moe_dispatch(None, x, topk_idx, topk_w, cfg, C,
+                                   lambda p, b, c: b)
+
+        slot = MO.expert_slots(topk_idx, E)
+        buf = want = None
+        for j in range(k):
+            b = MR.dispatch_ref(x, topk_idx[:, j], slot[:, j], E, C)
+            buf = b if buf is None else buf + b
+        for j in range(k):
+            c = MR.combine_ref(buf, topk_idx[:, j], slot[:, j], topk_w[:, j])
+            want = c if want is None else want + c
+        if not torch.equal(call(), want):
+            fail(f"the MoE layer body at the {shape} shape is not exact")
+        host_ms = host_ms_per_call(call, calls)  # before any profiling
+        before = D.launch_counts()
+        call()
+        after = D.launch_counts()
+        dev_ms, n_kernels = device_ms_per_call(call, None, calls)
+        out[shape] = {"T": T, "C": C, "device_ms": dev_ms,
+                      "kernels_per_call": n_kernels, "host_ms": host_ms,
+                      "events_ms": time_ms(call),
+                      "launches_per_call": {
+                          n: after[n] - before[n]
+                          for n in ("moe_dispatch", "moe_combine")}}
+    return out
+
+
+def join_build_calls(dev, seed: int) -> dict:
+    """``--only join-build``: ``kernel.join_table_build(bk_ord, brow, dpad)``
+    at Q-a's build shape, as the main path hands it over and in the other
+    cases of ``table_build_cases`` (CUDA events, each exact against the
+    plain version), its device time and kernels a call (profiler); then
+    Q-a and Q-b through ``Session(policy="tensor")``: warm p50 of
+    ``WARM_RUNS`` (answers held against the oracle), and one traced warm
+    run's device time and the build kernel's share of it.  It calls only
+    what every slice of the port offers, so that two checkouts can be timed
+    in turns."""
+    from repro_torch.kernels.segment_join import kernel as K
+    from repro_torch.kernels.segment_join import ref
+
+    orders, lineitem = tpch(1.0, seed)
+    want = oracle(orders, lineitem)
+    j = join_inputs(orders, lineitem, dev)
+    out = {"build_ms": table_build_cases(K, ref, j, dev)}
+    out["build_device_ms"], out["build_kernels_per_call"] = \
+        device_ms_per_call(lambda: K.join_table_build(
+            j["bk_ord"], j["brow"], j["dpad"]), "join_table_build", 20)
+    del j
+    qs = queries(tensor_session(orders, lineitem))
+    for name in ("Q-a", "Q-b"):
+        q = qs[name]
+        check_answer(name, q.collect(), want[name])
+        _, warm = warm_runs(name, q, want[name])
+        prof, wall_us = traced_run(q)
+        rows, busy = device_rows(prof)
+        out[name] = {"warm_p50_ms": statistics.median(warm) * 1e3,
+                     "traced_wall_us": wall_us, "device_us": busy,
+                     "join_table_build_us": sum(
+                         us for us, _, key in rows
+                         if "join_table_build" in key)}
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: the main path
 # ---------------------------------------------------------------------------
 
-def main_path(orders, lineitem, want):
-    import torch
-
-    from repro_torch import device as D
+def tensor_session(orders, lineitem):
+    """A card Session over the two tables with the tensor policy, as phase
+    3, its traces and ``--only join-build`` drive the queries."""
     from repro_torch.core import Session
 
     sess = Session(work_mem=1 << 20, policy="tensor", device="cuda")
     sess.register("orders", orders)
     sess.register("lineitem", lineitem)
-    qs = queries(sess)
+    return sess
+
+
+def warm_runs(name, q, want, runs: int = WARM_RUNS):
+    """``runs`` warm runs of query ``q``, each answer held against the
+    oracle's ``want``: their results and wall times in s."""
+    results, secs = [], []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        res = q.collect()
+        secs.append(time.perf_counter() - t0)
+        check_answer(name, res, want)
+        results.append(res)
+    return results, secs
+
+
+def traced_run(q):
+    """One warm run of query ``q`` under torch.profiler: the profile and
+    the run's wall time in us, up to the card's last kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        q.collect()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    return prof, wall_us
+
+
+def main_path(orders, lineitem, want):
+    import torch
+
+    from repro_torch import device as D
+
+    qs = queries(tensor_session(orders, lineitem))
     expect = {
         "Q-a": ("radix_rank", "join_table_build", "join_table_probe"),
         "Q-b": ("radix_rank", "join_table_build", "join_table_probe"),
@@ -965,14 +1187,10 @@ def main_path(orders, lineitem, want):
         res = q.collect()
         cold = time.perf_counter() - t0
         check_answer(name, res, want[name])
-        warm, syncs, h2d = [], [], []
-        for _ in range(WARM_RUNS):
-            t0 = time.perf_counter()
-            res = q.collect()
-            warm.append(time.perf_counter() - t0)
-            check_answer(name, res, want[name])
-            syncs.append(res.total_host_syncs)
-            h2d.append(res.total_h2d_bytes)
+        results, warm = warm_runs(name, q, want[name])
+        res = results[-1]
+        syncs = [r.total_host_syncs for r in results]
+        h2d = [r.total_h2d_bytes for r in results]
         after = D.launch_counts()
         delta = {k: after[k] - before[k] for k in after}
         ops = [m.op for m in res.metrics]
@@ -1089,33 +1307,18 @@ def serving_open(server, policy, want, seed: int):
             "held_bytes": server.governor.held_bytes, "launches": launches}
 
 
-def profile_queries(orders, lineitem) -> None:
+def profile_queries(orders, lineitem, want) -> None:
     """Where a warm query's time goes: torch.profiler over one warm run of
-    each query, the top kernels by device time, and the device's busy
-    share of the query's wall time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.core import Session
-
-    sess = Session(work_mem=1 << 20, policy="tensor", device="cuda")
-    sess.register("orders", orders)
-    sess.register("lineitem", lineitem)
-    for name, q in queries(sess).items():
-        q.collect()
-        q.collect()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            q.collect()
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        print_profile(name, prof, wall_us)
+    each query (after two checked against the oracle), the top kernels by
+    device time, and the device's busy share of the query's wall time."""
+    for name, q in queries(tensor_session(orders, lineitem)).items():
+        warm_runs(name, q, want[name], 2)
+        print_profile(name, *traced_run(q))
 
 
-def print_profile(label: str, prof, wall_us: float, top: int = 12) -> None:
-    """The device's busy share of a traced window's wall time and its
-    kernels by device time."""
+def device_rows(prof):
+    """A trace's kernels as (device us, count, name), largest first, and
+    their total device time in us."""
     import torch
 
     rows = []
@@ -1128,7 +1331,13 @@ def print_profile(label: str, prof, wall_us: float, top: int = 12) -> None:
         if dev_us > 0:
             rows.append((dev_us, e.count, e.key))
     rows.sort(reverse=True)
-    busy = sum(r[0] for r in rows)
+    return rows, sum(r[0] for r in rows)
+
+
+def print_profile(label: str, prof, wall_us: float, top: int = 12) -> None:
+    """The device's busy share of a traced window's wall time and its
+    kernels by device time."""
+    rows, busy = device_rows(prof)
     print(f"profile {label}: wall {wall_us:.0f} us, device busy "
           f"{busy:.0f} us ({100 * busy / wall_us:.1f}%), idle "
           f"{100 - 100 * busy / wall_us:.1f}%, "
@@ -1330,6 +1539,11 @@ def lm_agreement(seed: int) -> dict:
     return launches
 
 
+#: the ``--only`` phases besides ``lm`` (phase 6, run by ``lm_serving``)
+ONLY = {"moe-dispatch": dispatch_calls, "moe-layer": moe_layer_calls,
+        "join-build": join_build_calls}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1337,12 +1551,15 @@ def main() -> None:
                     help="also trace one warm run of each query, one warm "
                          "LM prefill and 12 decode steps with "
                          "torch.profiler and print where the time goes")
-    ap.add_argument("--only", choices=("moe-dispatch", "lm"),
+    ap.add_argument("--only", choices=(*ONLY, "lm"),
                     help="run one phase alone and print its numbers as one "
                          "JSON line, to compare two checkouts in turns on "
                          "one card: moe-dispatch times the layer body's "
-                         "dispatch call at the decode and prefill shapes, "
-                         "lm is phase 6 (with --profile, its trace)")
+                         "dispatch call and moe-layer the layer body with "
+                         "an identity FFN at the decode and prefill "
+                         "shapes, join-build the table build at Q-a's "
+                         "build shape and then Q-a and Q-b, lm is phase 6 "
+                         "(with --profile, its trace)")
     ap.add_argument("--tree", type=Path,
                     help="with --only: drive the repro_torch package of "
                          "this checkout (e.g. a parent commit unpacked with "
@@ -1382,8 +1599,10 @@ def main() -> None:
     t0 = time.perf_counter()
     libs = ("segment_join", "multikey_sort", "flash_attention",
             "flash_attention_sm90", "moe_dispatch")
-    if args.only == "moe-dispatch":
+    if args.only in ("moe-dispatch", "moe-layer"):
         libs = ("moe_dispatch",)
+    elif args.only == "join-build":
+        libs = ("segment_join",)
     for lib in libs:  # the first call builds every source, in parallel
         D.kernel_library(lib)
     print(f"kernel build ({', '.join(f'{x}.cu' for x in libs)}): "
@@ -1393,11 +1612,11 @@ def main() -> None:
     # float32 matmuls in full precision for the card/CPU comparisons
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.only == "lm":
+        res, _ = lm_serving(args.seed, args.profile)
+    elif args.only is not None:
+        res = ONLY[args.only](dev, args.seed)
     if args.only is not None:
-        if args.only == "moe-dispatch":
-            res = dispatch_calls(dev, args.seed)
-        else:
-            res, _ = lm_serving(args.seed, args.profile)
         print(json.dumps({"only": args.only, "tree": str(root), **res}))
         print(card_line)
         return
@@ -1435,7 +1654,7 @@ def main() -> None:
           flush=True)
 
     if args.profile:
-        profile_queries(orders, lineitem)
+        profile_queries(orders, lineitem, want)
 
     # phase 4: concurrent serving, counters from 0 before each loop
     serving = {}

@@ -35,12 +35,29 @@
 // Bound: bytes -- the routed x rows are read once and the whole [E, C, d]
 // buffer is written once (and read once with prev).
 //
-// Combine, y[t, :] = w_t * buf[eidx_t, slot_t, :], or 0 when the assignment
-// is dropped: for one routing slot at most one expert matches, so the
-// reference's sum over experts has one term.  w is cast to buf's dtype
-// first (as kernel.py:92 does), the product is taken in float32 and written
-// in buf's dtype.  Bound: bytes -- one buf row read and one y row written
-// per token.
+// Combine over all k routing slots in one launch,
+//   y[t, :] = c_0 (+) c_1 (+) ... (+) c_{k-1},  c_j = w_tj * buf[e_tj, s_tj, :]
+// (+) the float32 add rounded to buf's dtype, folded in j order: the layer
+// body's `y = c if y is None else y + c` over the k slots.  Each c_j is
+// rounded to buf's dtype, with w cast to buf's dtype first (as kernel.py:92
+// does) and the product taken in float32; a dropped assignment (e outside
+// [0, E) or s outside [0, C)) is +0.0, as the plain version's where() makes
+// it.  For one slot at most one expert matches, so the reference's sum
+// over experts has one term; k = 1 is the single-slot combine_pallas.
+// Adds and products are __fadd_rn / __fmul_rn, never contracted into an FMA,
+// so float32 has the plain composition's bits too.  The routing (expert
+// ids int32 or int64, slots int32 or int64, weights float32) is read as
+// the layer has it: [T, k] tensors or their column views at any element
+// strides, so nothing is converted or copied first.
+// Bound: bytes -- the k routed buf rows read and one y row written per
+// token.  Design: a block of kCombineThreads threads owns one token's
+// window of kCombineThreads * V columns (V = 16 bytes of buf's dtype), so
+// a decode step of 4 tokens at d 4096 still spreads over 16 blocks; each
+// thread reads the token's k (e, s, w) triples (the block's threads read
+// the same words, one L1 line), then issues the k slots' 16-byte loads
+// kGroup at a time before folding them, and stores 16 bytes.  Where d is
+// not a whole number of vectors, or buf or y is not 16-byte aligned, each
+// thread takes V scalar columns of the window instead (same arithmetic).
 //
 // The exported functions have a plain C interface (raw device pointers, the
 // caller's stream), launch on that stream, never synchronise and allocate
@@ -70,30 +87,22 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 constexpr int kRowThreads = 256;            // 8 warps, one row each
 constexpr int kScanTokens = 256;            // the scan's largest T
 
-// The assignment's row e * C + c, or -1 when it is dropped.
-__device__ __forceinline__ long long row_of(const int32_t* eidx,
-                                            const int32_t* slot, int t,
-                                            int E, int C) {
-  const int e = eidx[t], c = slot[t];
-  if (e < 0 || e >= E || c < 0 || c >= C) return -1;
-  return static_cast<long long>(e) * C + c;
-}
-
-// One routing slot's (expert, slot) columns: int32 or int64, element
-// strides.
+// The routing's (expert, slot) columns: int32 or int64 entries addressed
+// as base[t * ts + j * js], element strides over the tokens and over the k
+// routing slots (the dispatch reads one slot, j = 0).
 struct Route {
   const void* eidx;
   const void* slot;
-  long long e_stride, s_stride;
+  long long e_ts, e_js, s_ts, s_js;
   int e_is64, s_is64;
   int E, C;
-  __device__ __forceinline__ long long row(long long t) const {
-    const long long e = e_is64
-        ? static_cast<const long long*>(eidx)[t * e_stride]
-        : static_cast<const int32_t*>(eidx)[t * e_stride];
-    const long long c = s_is64
-        ? static_cast<const long long*>(slot)[t * s_stride]
-        : static_cast<const int32_t*>(slot)[t * s_stride];
+  // the assignment's buf row e * C + c, or -1 when it is dropped
+  __device__ __forceinline__ long long row(long long t, int j = 0) const {
+    const long long ei = t * e_ts + j * e_js, si = t * s_ts + j * s_js;
+    const long long e = e_is64 ? static_cast<const long long*>(eidx)[ei]
+                               : static_cast<const int32_t*>(eidx)[ei];
+    const long long c = s_is64 ? static_cast<const long long*>(slot)[si]
+                               : static_cast<const int32_t*>(slot)[si];
     if (e < 0 || e >= E || c < 0 || c >= C) return -1;
     return e * C + c;
   }
@@ -281,24 +290,113 @@ dispatch_rows_kernel(const T* __restrict__ x, int d, Route r, int T_,
   }
 }
 
-template <typename T>
-__global__ void combine_kernel(const T* __restrict__ buf, int E, int C, int d,
-                               const int32_t* __restrict__ eidx,
-                               const int32_t* __restrict__ slot,
-                               const float* __restrict__ w,
-                               T* __restrict__ y) {
-  const int t = blockIdx.x;
-  const long long row = row_of(eidx, slot, t, E, C);
-  T* out = y + static_cast<long long>(t) * d;
-  if (row < 0) {
-    for (int col = threadIdx.x; col < d; col += blockDim.x)
-      out[col] = from_f<T>(0.f);
-    return;
+constexpr int kCombineThreads = 128;
+constexpr int kGroup = 4;  // slots whose loads are in flight together
+
+template <typename T> __device__ __forceinline__ float round_to(float x) {
+  return to_f(from_f<T>(x));
+}
+
+// k slots of routing r, weights w[t * w_ts + j * w_js].  kVec: 16-byte
+// loads and stores; else V scalar columns a thread, strided by the block's
+// width.  grid.x = T * chunks, chunk = the token's window.
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kCombineThreads)
+combine_slots_kernel(const T* __restrict__ buf, int d, Route r, int k,
+                     const float* __restrict__ w, long long w_ts,
+                     long long w_js, int chunks, T* __restrict__ y) {
+  constexpr int V = 16 / sizeof(T);
+  const long long t = blockIdx.x / chunks;
+  const int chunk = static_cast<int>(blockIdx.x - t * chunks);
+  const int col0 = chunk * kCombineThreads * V;
+  // kVec: this thread's vector starts at col; else its columns are
+  // col0 + threadIdx.x + u * kCombineThreads
+  const int col = col0 + threadIdx.x * V;
+  if (kVec && col >= d) return;
+  float acc[V];
+  for (int j0 = 0; j0 < k; j0 += kGroup) {
+    long long row[kGroup];
+    float wt[kGroup];
+#pragma unroll
+    for (int g = 0; g < kGroup; ++g) {
+      row[g] = -1;
+      wt[g] = 0.f;
+      if (j0 + g < k) {
+        row[g] = r.row(t, j0 + g);
+        wt[g] = round_to<T>(w[t * w_ts + (j0 + g) * w_js]);  // buf's dtype
+      }
+    }
+    float x[kGroup][V];
+#pragma unroll
+    for (int g = 0; g < kGroup; ++g) {
+      const T* src = buf + (row[g] < 0 ? 0 : row[g]) * d;
+      if (kVec) {
+        uint4 v = make_uint4(0, 0, 0, 0);
+        if (row[g] >= 0) v = *reinterpret_cast<const uint4*>(src + col);
+#pragma unroll
+        for (int u = 0; u < V; ++u) x[g][u] = elem<T>(v, u);
+      } else {
+#pragma unroll
+        for (int u = 0; u < V; ++u) {
+          const int cu = col0 + threadIdx.x + u * kCombineThreads;
+          x[g][u] = (row[g] >= 0 && cu < d) ? to_f(src[cu]) : 0.f;
+        }
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < kGroup; ++g) {
+      if (j0 + g >= k) break;
+#pragma unroll
+      for (int u = 0; u < V; ++u) {
+        const float c =
+            row[g] >= 0 ? round_to<T>(__fmul_rn(wt[g], x[g][u])) : 0.f;
+        acc[u] = j0 + g == 0 ? c : round_to<T>(__fadd_rn(acc[u], c));
+      }
+    }
   }
-  const float wt = to_f(from_f<T>(w[t]));  // w in buf's dtype
-  const T* src = buf + row * d;
-  for (int col = threadIdx.x; col < d; col += blockDim.x)
-    out[col] = from_f<T>(wt * to_f(src[col]));
+  T* out = y + t * d;
+  if (kVec) {
+    uint32_t ow[4];
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      ow[w] = 0;
+#pragma unroll
+      for (int h = 0; h < V / 4; ++h)
+        ow[w] |= bits<T>(from_f<T>(acc[w * (V / 4) + h]))
+                 << (32 / (V / 4) * h);
+    }
+    *reinterpret_cast<uint4*>(out + col) = make_uint4(ow[0], ow[1], ow[2],
+                                                      ow[3]);
+  } else {
+#pragma unroll
+    for (int u = 0; u < V; ++u) {
+      const int cu = col0 + threadIdx.x + u * kCombineThreads;
+      if (cu < d) out[cu] = from_f<T>(acc[u]);
+    }
+  }
+}
+
+template <typename T>
+cudaError_t combine_slots(const void* buf, int d, const Route& r, int k,
+                          const float* w, long long w_ts, long long w_js,
+                          long long T_, void* y, cudaStream_t st) {
+  constexpr int V = 16 / sizeof(T);
+  const int chunks = (d + kCombineThreads * V - 1) / (kCombineThreads * V);
+  const long long blocks = T_ * chunks;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const bool vec = d % V == 0 && ((reinterpret_cast<uintptr_t>(buf) |
+                                   reinterpret_cast<uintptr_t>(y)) & 15) == 0;
+  const T* b = static_cast<const T*>(buf);
+  T* o = static_cast<T*>(y);
+  if (vec)
+    combine_slots_kernel<T, true><<<static_cast<int>(blocks), kCombineThreads,
+                                    0, st>>>(b, d, r, k, w, w_ts, w_js,
+                                             chunks, o);
+  else
+    combine_slots_kernel<T, false><<<static_cast<int>(blocks),
+                                     kCombineThreads, 0, st>>>(
+        b, d, r, k, w, w_ts, w_js, chunks, o);
+  return cudaGetLastError();
 }
 
 template <typename T>
@@ -354,7 +452,7 @@ int repro_moe_dispatch(const void* x, int T, int d, const void* eidx,
   if (T > kScanTokens && workspace == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Route r{eidx, slot, e_stride, s_stride, e_is64, s_is64, E, C};
+  const Route r{eidx, slot, e_stride, 0, s_stride, 0, e_is64, s_is64, E, C};
   int32_t* ws = static_cast<int32_t*>(workspace);
   cudaError_t err;
   if (dtype == 0) err = dispatch<float>(x, d, r, T, prev, buf, ws, st);
@@ -363,29 +461,30 @@ int repro_moe_dispatch(const void* x, int T, int d, const void* eidx,
   return static_cast<int>(err);
 }
 
-// buf [E, C, d]; eidx, slot [T] int32; w [T] float32; y [T, d] in buf's
-// dtype.
-int repro_moe_combine(const void* buf, int E, int C, int d, const void* eidx,
-                      const void* slot, const void* w, int T, int dtype,
+// buf [E, C, d] contiguous; eidx, slot: [T, k] entries of int32 (is64 =
+// 0) or int64 (is64 = 1) at element strides (*_ts over tokens, *_js over
+// slots); w: [T, k] float32 at strides (w_ts, w_js); y [T, d] contiguous
+// in buf's dtype.  k >= 1; E or C may be 0 (every assignment dropped).
+int repro_moe_combine(const void* buf, int E, int C, int d, int k,
+                      const void* eidx, long long e_ts, long long e_js,
+                      int e_is64, const void* slot, long long s_ts,
+                      long long s_js, int s_is64, const void* w,
+                      long long w_ts, long long w_js, long long T, int dtype,
                       void* y, void* stream) {
-  if (E < 1 || C < 1 || d < 1 || T < 0)
+  if (E < 0 || C < 0 || d < 1 || k < 1 || T < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (T == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int32_t* e = static_cast<const int32_t*>(eidx);
-  const int32_t* s = static_cast<const int32_t*>(slot);
+  const Route r{eidx, slot, e_ts, e_js, s_ts, s_js, e_is64, s_is64, E, C};
   const float* wf = static_cast<const float*>(w);
-  if (dtype == 0) {
-    combine_kernel<float><<<T, 128, 0, st>>>(
-        static_cast<const float*>(buf), E, C, d, e, s, wf, static_cast<float*>(y));
-  } else if (dtype == 1) {
-    combine_kernel<__nv_bfloat16><<<T, 128, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(buf), E, C, d, e, s, wf,
-        static_cast<__nv_bfloat16*>(y));
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  cudaError_t err;
+  if (dtype == 0)
+    err = combine_slots<float>(buf, d, r, k, wf, w_ts, w_js, T, y, st);
+  else if (dtype == 1)
+    err = combine_slots<__nv_bfloat16>(buf, d, r, k, wf, w_ts, w_js, T, y, st);
+  else
+    err = cudaErrorInvalidValue;
+  return static_cast<int>(err);
 }
 
 const char* repro_moe_error_string(int code) {

@@ -366,26 +366,81 @@ void counted_passes(const Ends& ends, const CountedScratch& c, long long n,
 //
 // Replaces segment_join/kernel.py::join_table_build_pallas (2-D grid of row
 // tiles x domain blocks, one-hot sums and maxima, with block skipping).
-// Bound: bytes -- 8 bytes read per build row plus the table's atomics.
-// Design: one thread per build row, atomicAdd for the count and atomicMax
-// for the row id.  The caller zeroes both tables.  The max makes "the
-// largest build row wins" deterministic whatever order the atomics land in.
-// Radix-ordered input (the caller's radix_partition pass) clusters the
-// atomics of neighbouring threads into a few cache lines.
+// Bound: bytes -- 8 bytes read per build row, the two tables written once.
+// The caller zeroes both tables; the max makes "the largest build row wins"
+// whatever order the atomics land in, and a count does not depend on it.
+// Design: the build side often holds many rows of one code -- the fused
+// join sends every padding row to the dead slot `domain` (28% of Q-a's
+// 2,097,152 rows), and a skewed key does the same -- and atomics to one
+// address serialise in L2.  So equal codes are folded before any atomic:
+// a warp takes kBuildRows tiles of 32 consecutive rows at once (coalesced
+// loads, lane l holding row l of each tile); each lane folds each run of
+// equal codes among its rows into a count and a max; in round u a lane
+// offers the run that ends at its row of tile u.  Where two neighbouring
+// lanes offer one code, __match_any_sync groups the lanes that offer one
+// code, __reduce_add_sync and __reduce_max_sync fold the group, and its
+// leader issues one atomicAdd and one atomicMax; a round of distinct codes
+// (a shuffle and a vote tell) skips the match, which costs more than the
+// atomics it would save there, and each lane issues its pair.  A stretch of
+// one code costs one atomic pair per 32 * kBuildRows rows; distinct codes
+// cost one pair a row, as before, and each round's atomics fall on 32
+// consecutive rows' slots, which radix order (the caller's
+// radix_partition pass) keeps on a few neighbouring table sectors.
 // ---------------------------------------------------------------------------
-__global__ void join_table_build_kernel(const int32_t* __restrict__ bk,
-                                        const int32_t* __restrict__ brow,
-                                        long long n, int32_t* __restrict__ cnt,
-                                        int32_t* __restrict__ inv,
-                                        int domain_pad) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < n; i += stride) {
-    const int c = bk[i];
-    if (c >= 0 && c < domain_pad) {
-      atomicAdd(&cnt[c], 1);
-      atomicMax(&inv[c], brow[i] + 1);
+constexpr int kBuildThreads = 256;
+constexpr int kBuildRows = 4;
+
+__global__ void __launch_bounds__(kBuildThreads)
+join_table_build_kernel(const int32_t* __restrict__ bk,
+                        const int32_t* __restrict__ brow, long long n,
+                        int32_t* __restrict__ cnt, int32_t* __restrict__ inv,
+                        int domain_pad) {
+  const int lane = threadIdx.x & 31;
+  constexpr long long kSpan = 32 * kBuildRows;  // rows a warp takes at once
+  const long long warps =
+      static_cast<long long>(gridDim.x) * (kBuildThreads / 32);
+  for (long long base = ((static_cast<long long>(blockIdx.x) * kBuildThreads +
+                          threadIdx.x) >> 5) * kSpan;
+       base < n; base += warps * kSpan) {
+    int c[kBuildRows], r[kBuildRows];
+#pragma unroll
+    for (int u = 0; u < kBuildRows; ++u) {
+      const long long i = base + u * 32 + lane;
+      c[u] = i < n ? bk[i] : -1;  // past the end: ignored
+      r[u] = i < n ? brow[i] : 0;
+    }
+    int run_n = 0, run_max = 0;
+#pragma unroll
+    for (int u = 0; u < kBuildRows; ++u) {
+      ++run_n;
+      run_max = max(run_max, r[u] + 1);
+      // the lane's run ends here: its last row, or the next row's code
+      // differs
+      const bool ends =
+          u + 1 == kBuildRows || c[u + 1 < kBuildRows ? u + 1 : u] != c[u];
+      const bool live = ends && c[u] >= 0 && c[u] < domain_pad;
+      const int key = live ? c[u] : -1;
+      // two neighbouring lanes offering one code mark a stretch of it:
+      // fold the warp's equal codes (the match is costly, so rounds of
+      // distinct codes skip it; a duplicate it misses costs one atomic)
+      const int other = __shfl_xor_sync(kFullMask, key, 1);  // every lane
+      const bool pair = live && key == other;
+      if (__any_sync(kFullMask, pair)) {
+        const unsigned group = __match_any_sync(kFullMask, key);
+        const int total = __reduce_add_sync(group, live ? run_n : 0);
+        const int top = __reduce_max_sync(group, live ? run_max : 0);
+        if (live && lane == __ffs(group) - 1) {
+          atomicAdd(&cnt[key], total);
+          atomicMax(&inv[key], top);
+        }
+      } else if (live) {
+        atomicAdd(&cnt[key], run_n);
+        atomicMax(&inv[key], run_max);
+      }
+      if (ends) {
+        run_n = 0;
+        run_max = 0;
+      }
     }
   }
 }
@@ -499,12 +554,14 @@ int repro_radix_rank(const void* ids, long long n, int num_buckets,
   return static_cast<int>(cudaGetLastError());
 }
 
+// cnt, inv: [domain_pad] int32 each, zeroed by the caller.
 int repro_join_table_build(const void* bk, const void* brow, long long n,
                            void* cnt, void* inv, int domain_pad,
                            void* stream) {
   if (n > 0) {
-    const int threads = 256;
-    join_table_build_kernel<<<grid_for(n, threads, 132 * 32), threads, 0,
+    join_table_build_kernel<<<grid_for((n + kBuildRows - 1) / kBuildRows,
+                                       kBuildThreads, 132 * 8),
+                              kBuildThreads, 0,
                               static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int32_t*>(bk), static_cast<const int32_t*>(brow), n,
         static_cast<int32_t*>(cnt), static_cast<int32_t*>(inv), domain_pad);

@@ -22,6 +22,7 @@ the interpreter lock during a launch.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -38,7 +39,7 @@ import torch
 __all__ = ["resolve_device", "synchronize", "to_host", "upload", "LAUNCHES",
            "RELATIONAL_KERNELS", "count_launch", "launch_counts",
            "reset_launch_counts", "kernel_library", "build_seconds",
-           "NVCC_FLAGS"]
+           "NVCC_FLAGS", "device_guard", "stream_handle"]
 
 DeviceLike = Union[str, torch.device, None]
 
@@ -102,6 +103,30 @@ def synchronize(device: torch.device) -> None:
     """Wait for the device's queued work (no-op on the CPU)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def device_guard(dev: torch.device):
+    """A context in which ``dev`` (a CUDA tensor's device) is the current
+    device, for a launch through ctypes; none is entered when it already
+    is (a kernel called once a decode step pays ``torch.cuda.device``'s
+    microseconds every call otherwise)."""
+    if dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
+
+
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def stream_handle(dev: torch.device) -> int:
+    """The raw ``cudaStream_t`` of PyTorch's current stream on ``dev`` (a
+    CUDA tensor's device).  Through torch's private
+    ``_cuda_getCurrentRawStream`` (present in torch 2.11), which makes no
+    ``torch.cuda.Stream`` object: that costs more host time than a small
+    kernel's launch.  A torch without it takes the public call."""
+    if _RAW_STREAM is not None:
+        return _RAW_STREAM(dev.index)
+    return torch.cuda.current_stream(dev).cuda_stream
 
 
 # ---------------------------------------------------------------------------

@@ -31,7 +31,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from ...device import count_launch, kernel_library
+from ...device import (count_launch, device_guard, kernel_library,
+                       stream_handle)
 
 __all__ = ["flash_attention_fwd", "select_kernel", "tma_strides",
            "MAX_HEAD_DIM", "TENSOR_CORE_KERNEL", "F32_KERNEL"]
@@ -162,11 +163,11 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     opts = (int(bool(causal)), int(window or 0), float(cap or 0.0),
             float(scale), int(q_offset))
     fn, errors = _entry(name)
-    with torch.cuda.device(q.device):
+    with device_guard(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 B, Sq, Sk, H, KH, D, Dv, *tma_strides(q), *tma_strides(k),
                 *tma_strides(v), *out.stride()[:3], *opts,
-                torch.cuda.current_stream(q.device).cuda_stream)
+                stream_handle(q.device))
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: error {rc} "
                            f"({errors(rc).decode()})")

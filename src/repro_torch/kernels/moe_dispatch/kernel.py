@@ -1,19 +1,20 @@
 """ctypes bindings for the Hopper kernels in ``csrc/moe_dispatch.cu``.
 
 :func:`moe_dispatch` replaces
-``src/repro/kernels/moe_dispatch/kernel.py::dispatch_pallas`` and
-:func:`moe_combine` replaces ``::combine_pallas``.  Each wrapper checks the
-device, dtype, shape and contiguity of its inputs and raises on anything
-the kernel does not take, allocates the output with ``torch.empty`` (the
-dispatch can add into a buffer it is given instead), launches on
-``torch.cuda.current_stream()``, raises if the launch reports a CUDA error,
-and adds one to its launch counter.  The dispatch reads the routing
-columns as they come (int32 or int64, any stride); above the kernel's scan
-limit it needs an int32 workspace of (count, token) pairs, made zeroed once
-per device, stream and host thread and left with zero counts by the
-kernel, so a call allocates nothing else.  They
-only take CUDA tensors; the plain versions in :mod:`.ref` serve CPU
-tensors, chosen in :mod:`.ops`.
+``src/repro/kernels/moe_dispatch/kernel.py::dispatch_pallas``, and
+:func:`moe_combine` (one routing slot) and :func:`moe_combine_slots` (all k
+slots of the layer, one launch) replace ``::combine_pallas``.  Each wrapper
+checks the device, dtype and shape of its inputs (and the contiguity of x
+and buf) and raises on anything the kernel does not take, allocates the
+output with ``torch.empty`` (the dispatch can add into a buffer it is
+given instead), launches on ``torch.cuda.current_stream()``, raises if the
+launch reports a CUDA error, and adds one to its launch counter.  Both
+read the routing as it comes (int32 or int64 ids, float32 weights, any
+stride); above the kernel's scan limit the dispatch needs an int32
+workspace of (count, token) pairs, made zeroed once per device, stream and
+host thread and left with zero counts by the kernel, so a call allocates
+nothing else.  They only take CUDA tensors; the plain versions in
+:mod:`.ref` serve CPU tensors, chosen in :mod:`.ops`.
 """
 from __future__ import annotations
 
@@ -23,9 +24,10 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from ...device import count_launch, kernel_library
+from ...device import (count_launch, device_guard, kernel_library,
+                       stream_handle)
 
-__all__ = ["moe_dispatch", "moe_combine"]
+__all__ = ["moe_dispatch", "moe_combine", "moe_combine_slots"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _INDEX = {torch.int32: 0, torch.int64: 1}
@@ -46,7 +48,8 @@ def _lib() -> ctypes.CDLL:
         lib.repro_moe_dispatch.argtypes = [p, i, i, p, ll, i, p, ll, i, i,
                                            i, i, p, p, p, p]
         lib.repro_moe_dispatch.restype = ctypes.c_int
-        lib.repro_moe_combine.argtypes = [p, i, i, i, p, p, p, i, i, p, p]
+        lib.repro_moe_combine.argtypes = [p, i, i, i, i, p, ll, ll, i, p,
+                                          ll, ll, i, p, ll, ll, ll, i, p, p]
         lib.repro_moe_combine.restype = ctypes.c_int
         lib.repro_moe_error_string.argtypes = [i]
         lib.repro_moe_error_string.restype = ctypes.c_char_p
@@ -64,13 +67,6 @@ def _check(t: torch.Tensor, what: str, dim: int, dtypes) -> None:
         raise TypeError(f"{what}: expected one of {dtypes}, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{what}: expected a contiguous tensor")
-
-
-def _check_routing(eidx, slot, n: int, dev) -> None:
-    for t, what in ((eidx, "eidx"), (slot, "slot")):
-        _check(t, what, 1, (torch.int32,))
-        if t.shape[0] != n or t.device != dev:
-            raise ValueError(f"{what}: expected {n} entries on {dev}")
 
 
 def _raise(lib, rc: int, name: str) -> None:
@@ -138,8 +134,8 @@ def moe_dispatch(x: torch.Tensor, eidx: torch.Tensor, slot: torch.Tensor,
     if d == 0:
         return buf
     lib = _lib()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
+    stream = stream_handle(dev)
+    with device_guard(dev):
         ws = _workspace(dev, stream,
                         lib.repro_moe_dispatch_workspace_ints(T, E, C))
         rc = lib.repro_moe_dispatch(
@@ -155,28 +151,53 @@ def moe_dispatch(x: torch.Tensor, eidx: torch.Tensor, slot: torch.Tensor,
 
 def moe_combine(buf: torch.Tensor, eidx: torch.Tensor, slot: torch.Tensor,
                 w: torch.Tensor) -> torch.Tensor:
-    """buf ``[E, C, d]`` (float32 or bfloat16); eidx/slot ``[T]`` int32; w
-    ``[T]`` float32 → y ``[T, d]`` in buf's dtype: ``w_t`` (cast to buf's
-    dtype) times ``buf[eidx_t, slot_t]``, or zeros for a dropped
-    assignment."""
+    """buf ``[E, C, d]`` (float32 or bfloat16); eidx/slot ``[T]`` int32 or
+    int64 and w ``[T]`` float32, at any stride → y ``[T, d]`` in buf's
+    dtype: ``w_t`` (cast to buf's dtype) times ``buf[eidx_t, slot_t]``, or
+    +0.0 for a dropped assignment.  The k = 1 case of
+    :func:`moe_combine_slots`."""
+    return moe_combine_slots(buf, eidx[:, None], slot[:, None], w[:, None])
+
+
+def moe_combine_slots(buf: torch.Tensor, topk_idx: torch.Tensor,
+                      slot: torch.Tensor,
+                      topk_w: torch.Tensor) -> torch.Tensor:
+    """buf ``[E, C, d]`` (float32 or bfloat16); topk_idx/slot ``[T, k]``
+    int32 or int64 and topk_w ``[T, k]`` float32, at any strides (k >= 1) →
+    y ``[T, d]`` in buf's dtype: the k slots' combines ``w_tj ·
+    buf[e_tj, s_tj]`` (each rounded to buf's dtype, +0.0 when dropped)
+    added in j order, each partial sum rounded to buf's dtype, as ``y = c
+    if y is None else y + c`` rounds them.  One launch."""
     _check(buf, "buf", 3, tuple(_DTYPES))
     E, C, d = buf.shape
-    T = eidx.shape[0] if isinstance(eidx, torch.Tensor) else -1
-    _check_routing(eidx, slot, T, buf.device)
-    _check(w, "w", 1, (torch.float32,))
-    if w.shape[0] != T or w.device != buf.device:
-        raise ValueError(f"w: expected {T} entries on {buf.device}")
-    if T > _INT_MAX or d > _INT_MAX:
+    dev = buf.device
+    if not isinstance(topk_idx, torch.Tensor) or topk_idx.dim() != 2:
+        raise ValueError("topk_idx: expected a [T, k] tensor")
+    T, k = topk_idx.shape
+    for t, what in ((topk_idx, "topk_idx"), (slot, "slot"),
+                    (topk_w, "topk_w")):
+        if not isinstance(t, torch.Tensor) or t.device != dev:
+            raise ValueError(f"{what}: expected a tensor on {dev}")
+        if tuple(t.shape) != (T, k):
+            raise ValueError(f"{what}: expected ({T}, {k}), got "
+                             f"{tuple(t.shape)}")
+        if t.dtype not in ((torch.float32,) if t is topk_w else _INDEX):
+            raise TypeError(f"{what}: unexpected dtype {t.dtype}")
+    if k < 1:
+        raise ValueError("expected at least one routing slot")
+    if d > _INT_MAX or E * C > _INT_MAX:
         raise ValueError("sizes do not fit the kernel's int32 indices")
-    y = torch.empty((T, d), dtype=buf.dtype, device=buf.device)
-    if T == 0 or d == 0 or E == 0 or C == 0:
-        return y.zero_()
+    y = torch.empty((T, d), dtype=buf.dtype, device=dev)
+    if T == 0 or d == 0:
+        return y
     lib = _lib()
-    with torch.cuda.device(buf.device):
+    with device_guard(dev):
         rc = lib.repro_moe_combine(
-            buf.data_ptr(), E, C, d, eidx.data_ptr(), slot.data_ptr(),
-            w.data_ptr(), T, _DTYPES[buf.dtype], y.data_ptr(),
-            torch.cuda.current_stream(buf.device).cuda_stream)
+            buf.data_ptr(), E, C, d, k, topk_idx.data_ptr(),
+            *topk_idx.stride(), _INDEX[topk_idx.dtype], slot.data_ptr(),
+            *slot.stride(), _INDEX[slot.dtype], topk_w.data_ptr(),
+            *topk_w.stride(), T, _DTYPES[buf.dtype], y.data_ptr(),
+            stream_handle(dev))
     _raise(lib, rc, "moe_combine")
     count_launch("moe_combine")
     return y

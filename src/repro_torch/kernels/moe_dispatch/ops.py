@@ -2,10 +2,11 @@
 
 The contracts are those of ``src/repro/kernels/moe_dispatch/ops.py``:
 ``dispatch(x, eidx, slot, E, C)``, ``combine(buf, eidx, slot, w)`` and the
-layer body :func:`moe_dispatch` (``moe_dispatch_pallas`` there).  Each op
-picks its implementation by the device of the tensors it is given: a CUDA
-tensor launches the hand-written kernels of :mod:`.kernel` (or raises), a
-CPU tensor takes the plain versions of :mod:`.ref`.
+layer body :func:`moe_dispatch` (``moe_dispatch_pallas`` there), whose
+loop of k combines and adds is :func:`combine_slots`, one launch on the
+card.  Each op picks its implementation by the device of the tensors it is
+given: a CUDA tensor launches the hand-written kernels of :mod:`.kernel`
+(or raises), a CPU tensor takes the plain versions of :mod:`.ref`.
 """
 from __future__ import annotations
 
@@ -17,15 +18,34 @@ import torch.nn.functional as F
 from . import kernel as _k
 from . import ref as _ref
 
-__all__ = ["dispatch", "combine", "moe_dispatch", "expert_slots"]
+__all__ = ["dispatch", "combine", "combine_slots", "moe_dispatch",
+           "expert_slots"]
+
+
+_NARROW_IDS = (torch.uint8, torch.int8, torch.int16)
+
+
+def _ids(t: torch.Tensor) -> torch.Tensor:
+    """Routing ids as the kernels read them: int32 and int64 as they come,
+    the narrower integer dtypes converted to int32 (a launch only then);
+    any other dtype is left for the kernel's check to refuse."""
+    return t.to(torch.int32) if t.dtype in _NARROW_IDS else t
+
+
+def _weights(t: torch.Tensor) -> torch.Tensor:
+    """Routing weights in float32; ``.to()`` alone costs host time, so it
+    is called only when they are not."""
+    return t if t.dtype == torch.float32 else t.float()
 
 
 def dispatch(x: torch.Tensor, eidx: torch.Tensor, slot: torch.Tensor,
              num_experts: int, capacity: int,
              into: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """x ``[T, d]``; eidx/slot ``[T]`` (one routing slot, any integer dtype
-    and stride) → buf ``[E, C, d]``; with ``into``, ``into + buf`` written
-    into ``into`` (on the card in the dispatch kernel itself)."""
+    """x ``[T, d]``; eidx/slot ``[T]`` (one routing slot, int8, uint8,
+    int16, int32 or int64, any stride) → buf ``[E, C, d]``; with ``into``,
+    ``into + buf`` written into ``into`` (on the card in the dispatch
+    kernel itself)."""
+    eidx, slot = _ids(eidx), _ids(slot)
     if x.device.type == "cuda":
         return _k.moe_dispatch(x.contiguous(), eidx, slot, num_experts,
                                capacity, into)
@@ -35,13 +55,24 @@ def dispatch(x: torch.Tensor, eidx: torch.Tensor, slot: torch.Tensor,
 
 def combine(buf: torch.Tensor, eidx: torch.Tensor, slot: torch.Tensor,
             w: torch.Tensor) -> torch.Tensor:
-    """buf ``[E, C, d]``; eidx/slot/w ``[T]`` → y ``[T, d]``."""
-    eidx = eidx.to(torch.int32).contiguous()
-    slot = slot.to(torch.int32).contiguous()
-    w = w.to(torch.float32).contiguous()
+    """buf ``[E, C, d]``; eidx/slot ``[T]`` (int8, uint8, int16, int32 or
+    int64, any stride), w ``[T]`` → y ``[T, d]``."""
+    eidx, slot, w = _ids(eidx), _ids(slot), _weights(w)
     if buf.device.type == "cuda":
         return _k.moe_combine(buf.contiguous(), eidx, slot, w)
     return _ref.combine_ref(buf, eidx, slot, w)
+
+
+def combine_slots(buf: torch.Tensor, topk_idx: torch.Tensor,
+                  slot: torch.Tensor, topk_w: torch.Tensor) -> torch.Tensor:
+    """buf ``[E, C, d]``; topk_idx/slot/topk_w ``[T, k]`` (the routing as
+    the layer has it; ids int8, uint8, int16, int32 or int64; any strides)
+    → y ``[T, d]``: the k slots' combines added in slot order, ``y = c if
+    y is None else y + c``."""
+    topk_idx, slot, topk_w = _ids(topk_idx), _ids(slot), _weights(topk_w)
+    if buf.device.type == "cuda":
+        return _k.moe_combine_slots(buf.contiguous(), topk_idx, slot, topk_w)
+    return _ref.combine_slots_ref(buf, topk_idx, slot, topk_w)
 
 
 def expert_slots(topk_idx: torch.Tensor, num_experts: int) -> torch.Tensor:
@@ -59,17 +90,12 @@ def moe_dispatch(params, x_flat: torch.Tensor, topk_idx: torch.Tensor,
                  topk_w: torch.Tensor, cfg, capacity: int,
                  expert_ffn: Callable) -> torch.Tensor:
     """The MoE layer body on the kernel path: k dispatch passes, the expert
-    FFN, k combine passes.  Same capacity and drop semantics as the model's
-    einsum path."""
+    FFN, and the k slots' combine (one pass on the card).  Same capacity
+    and drop semantics as the model's einsum path."""
     E, k = cfg.num_experts, cfg.experts_per_token
     slot = expert_slots(topk_idx, E)
     buf = None
     for j in range(k):  # slot j > 0 is added into the running buffer
         buf = dispatch(x_flat, topk_idx[:, j], slot[:, j], E, capacity, buf)
     out_buf = expert_ffn(params, buf, cfg)
-    y = None
-    for j in range(k):
-        c = combine(out_buf, topk_idx[:, j], slot[:, j],
-                    topk_w[:, j].to(torch.float32))
-        y = c if y is None else y + c
-    return y
+    return combine_slots(out_buf, topk_idx, slot, topk_w)

@@ -6,7 +6,9 @@ to each (expert, slot) row in float32, in ascending t (one pass per rank
 among the tokens that share a row, so no pass writes a row twice and the
 order is fixed on any device), and writes x's dtype; combine multiplies the
 row ``buf[eidx_t, slot_t]`` by ``w_t`` cast to buf's dtype, in float32, and
-writes buf's dtype.  Assignments outside ``[0, E) x [0, C)`` are dropped.
+writes buf's dtype (+0.0 for a dropped assignment); :func:`combine_slots_ref`
+adds the k routing slots' combines in slot order in buf's dtype.
+Assignments outside ``[0, E) x [0, C)`` are dropped.
 The wrappers in :mod:`.ops` take them for CPU tensors; the tests and
 ``chip_smoke.py`` hold the kernels against them on the card.
 
@@ -18,7 +20,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ["dispatch_ref", "combine_ref", "dispatch_onehot_ref"]
+__all__ = ["dispatch_ref", "combine_ref", "combine_slots_ref",
+           "dispatch_onehot_ref"]
 
 
 def _rows(eidx, slot, E: int, C: int):
@@ -60,6 +63,21 @@ def combine_ref(buf: torch.Tensor, eidx: torch.Tensor, slot: torch.Tensor,
     src = buf.reshape(E * C, d)[torch.where(keep, row, 0)].float()
     wt = w.to(buf.dtype).float()[:, None]
     return torch.where(keep[:, None], wt * src, 0.0).to(buf.dtype)
+
+
+def combine_slots_ref(buf: torch.Tensor, topk_idx: torch.Tensor,
+                      slot: torch.Tensor,
+                      topk_w: torch.Tensor) -> torch.Tensor:
+    """buf ``[E, C, d]``; topk_idx/slot/topk_w ``[T, k]``, k >= 1 → y
+    ``[T, d]``: the layer body's loop over :func:`combine_ref`, each
+    partial sum rounded to buf's dtype."""
+    if topk_idx.shape[1] < 1:
+        raise ValueError("expected at least one routing slot")
+    y = None
+    for j in range(topk_idx.shape[1]):
+        c = combine_ref(buf, topk_idx[:, j], slot[:, j], topk_w[:, j])
+        y = c if y is None else y + c
+    return y
 
 
 def dispatch_onehot_ref(x, eidx, slot, num_experts: int, capacity: int):

@@ -18,7 +18,8 @@ from typing import Optional
 
 import torch
 
-from ...device import count_launch, kernel_library
+from ...device import (count_launch, device_guard, kernel_library,
+                       stream_handle)
 from .ref import key_kind
 
 __all__ = ["radix_sort_pass", "digit_passes_run"]
@@ -73,11 +74,11 @@ def _sort_pass(col: torch.Tensor, perm: Optional[torch.Tensor]):
     es = col.element_size()
     scratch = torch.empty(lib.repro_radix_sort_scratch_bytes(n, es),
                           dtype=torch.uint8, device=dev)
-    with torch.cuda.device(dev):
+    with device_guard(dev):
         rc = lib.repro_radix_sort_pass(
             col.data_ptr(), es, kind, inf_bits,
             None if perm is None else perm.data_ptr(), n, out.data_ptr(),
-            scratch.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            scratch.data_ptr(), stream_handle(dev))
     if rc != 0:
         msg = lib.repro_sort_error_string(rc).decode()
         raise RuntimeError(f"radix_sort_pass kernel launch failed: CUDA error "

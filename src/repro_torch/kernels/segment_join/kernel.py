@@ -22,7 +22,8 @@ import ctypes
 
 import torch
 
-from ...device import count_launch, kernel_library
+from ...device import (count_launch, device_guard, kernel_library,
+                       stream_handle)
 
 __all__ = ["segment_sum", "radix_rank", "join_table_build",
            "join_table_probe", "RADIX_TILE"]
@@ -91,10 +92,6 @@ def _launch(name: str, fn, *args) -> None:
     count_launch(name)
 
 
-def _stream(dev: torch.device) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
 def segment_sum(seg_ids: torch.Tensor, values: torch.Tensor,
                 num_segments: int, ids_sorted: bool = False) -> torch.Tensor:
     """``sums[s] = Σ values[i]`` over ``seg_ids[i] == s`` (int32 ids, float64
@@ -124,11 +121,12 @@ def segment_sum(seg_ids: torch.Tensor, values: torch.Tensor,
         _size(n, "rows")
         scratch = torch.empty(lib.repro_segment_sum_f64_scratch_bytes(n, S),
                               dtype=torch.uint8, device=dev)
-    with torch.cuda.device(dev):
+    with device_guard(dev):
         _launch("segment_sum", lib.repro_segment_sum_f64,
                 seg_ids.data_ptr(), values.data_ptr(), n, out.data_ptr(), S,
                 int(bool(ids_sorted)),
-                None if scratch is None else scratch.data_ptr(), _stream(dev))
+                None if scratch is None else scratch.data_ptr(),
+                stream_handle(dev))
     return out
 
 
@@ -151,10 +149,10 @@ def radix_rank(bucket_ids: torch.Tensor, num_buckets: int,
                           dtype=torch.uint8, device=dev)
     counts = torch.empty(B, dtype=torch.int32, device=dev)
     rank = torch.empty(n, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
+    with device_guard(dev):
         _launch("radix_rank", lib.repro_radix_rank, bucket_ids.data_ptr(), n,
                 B, scratch.data_ptr(), counts.data_ptr(), rank.data_ptr(),
-                _stream(dev))
+                stream_handle(dev))
     return rank, counts
 
 
@@ -168,15 +166,15 @@ def join_table_build(bk: torch.Tensor, brow: torch.Tensor, domain_pad: int):
         raise ValueError("bk and brow differ in length")
     dev = _same_device(bk, brow)
     D = _size(domain_pad, "domain_pad")
-    cnt = torch.zeros(D, dtype=torch.int32, device=dev)
-    inv = torch.zeros(D, dtype=torch.int32, device=dev)
+    # both tables in one allocation, zeroed by one launch
+    cnt, inv = torch.zeros((2, D), dtype=torch.int32, device=dev).unbind(0)
     n = bk.shape[0]
     if n == 0 or D == 0:
         return cnt, inv
-    with torch.cuda.device(dev):
+    with device_guard(dev):
         _launch("join_table_build", _lib().repro_join_table_build,
                 bk.data_ptr(), brow.data_ptr(), n, cnt.data_ptr(),
-                inv.data_ptr(), D, _stream(dev))
+                inv.data_ptr(), D, stream_handle(dev))
     return cnt, inv
 
 
@@ -195,8 +193,8 @@ def join_table_probe(pk: torch.Tensor, cnt: torch.Tensor, inv: torch.Tensor):
     inv_p = torch.empty(n, dtype=torch.int32, device=dev)
     if n == 0:
         return cnt_p, inv_p
-    with torch.cuda.device(dev):
+    with device_guard(dev):
         _launch("join_table_probe", _lib().repro_join_table_probe,
                 pk.data_ptr(), n, cnt.data_ptr(), inv.data_ptr(), D,
-                cnt_p.data_ptr(), inv_p.data_ptr(), _stream(dev))
+                cnt_p.data_ptr(), inv_p.data_ptr(), stream_handle(dev))
     return cnt_p, inv_p

@@ -53,6 +53,42 @@ def test_kernels_match_plain_versions(dev):
             ref.segment_sum_ref(seg.cpu(), val.cpu(), 512), rtol=0, atol=0)
 
 
+def _build_codes(case, n, dpad, rng):
+    """Build-side codes of ``n`` rows into ``dpad`` slots (int32)."""
+    if case == "random":
+        return rng.integers(0, dpad, n)
+    if case == "radix":   # ordered by 512-code block, 28% at one dead slot
+        a = rng.integers(0, dpad - 1, n)
+        a[n - n * 28 // 100:] = dpad - 1
+        return a[np.argsort(a >> 9, kind="stable")]
+    if case == "one_code":
+        return np.full(n, 77)
+    if case == "half_one_code":
+        a = rng.integers(0, dpad, n)
+        a[rng.permutation(n)[: n // 2]] = 5
+        return a
+    if case == "out_of_range":
+        return rng.integers(-40, dpad + 40, n)
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize("case", ["random", "radix", "one_code",
+                                  "half_one_code", "out_of_range"])
+@pytest.mark.parametrize("n", [1, 131, 300_001])
+def test_join_table_build_matches_plain_version(dev, case, n):
+    """Equal codes folded per lane and per warp before their atomics: the
+    counts and largest rows equal the plain version's on any order."""
+    from repro_torch.kernels.segment_join import kernel, ref
+
+    rng = np.random.default_rng(n)
+    dpad = 4096
+    bk = _t(_build_codes(case, n, dpad, rng).astype(np.int32), dev)
+    brow = _t(rng.permutation(n).astype(np.int32), dev)
+    got = kernel.join_table_build(bk, brow, dpad)
+    want = ref.join_table_build_ref(bk, brow, dpad)
+    assert all(torch.equal(g, w) for g, w in zip(got, want)), case
+
+
 def _segment_ids(case, n, rng):
     """Segment ids (int32) of ``n`` rows into 1000 segments, and whether
     each segment's rows are contiguous."""
@@ -718,6 +754,126 @@ def test_moe_dispatch_launch_count_per_call(dev, T, kernels):
                      if ev.device_type == torch.autograd.DeviceType.CUDA]
     assert len(device_events) == kernels, device_events
     assert all("dispatch" in name for name in device_events), device_events
+
+
+def _combine_case(T, d, E, C, k, dtype, dev, seed):
+    """buf and a ``[T, k]`` routing as the layer hands it over: int64
+    expert ids and int32 slots as strided column views (some dropped or
+    overflowing), float32 weights as a column slice."""
+    rng = np.random.default_rng(seed)
+    buf = _t(rng.normal(size=(E, C, d)).astype(np.float32), dev).to(dtype)
+    idx = _t(rng.integers(-1, E + 1, (T, k + 2)).astype(np.int64),
+             dev)[:, :k]
+    slot = _t(rng.integers(-1, C + C // 4 + 1, (T, 2 * k)).astype(np.int32),
+              dev)[:, ::2]
+    w = _t(rng.random((T, k + 1)).astype(np.float32), dev)[:, 1:]
+    return buf, idx, slot, w
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 2, 4])
+@pytest.mark.parametrize("T,d,E,C", [(4, 4096, 16, 16),       # decode
+                                     (8192, 4096, 16, 1280),  # prefill
+                                     (37, 100, 4, 16),        # scalar tail
+                                     (300, 132, 8, 48)])
+def test_moe_combine_slots_matches_plain_versions(dev, dtype, k, T, d, E, C):
+    """All k slots in one launch: bit for bit the plain version (the loop
+    of ``combine_ref`` and ``y + c``) and the earlier composition of k
+    single-slot kernels and adds, strided routing views included."""
+    from repro_torch.kernels.moe_dispatch import kernel, ref
+
+    buf, idx, slot, w = _combine_case(T, d, E, C, k, dtype, dev, T + k)
+    assert not (idx.is_contiguous() or slot.is_contiguous()
+                or w.is_contiguous())
+    got = kernel.moe_combine_slots(buf, idx, slot, w)
+    assert torch.equal(got, ref.combine_slots_ref(buf, idx, slot, w))
+    two_call = None
+    for j in range(k):
+        c = kernel.moe_combine(buf, idx[:, j], slot[:, j], w[:, j])
+        assert torch.equal(c, ref.combine_ref(buf, idx[:, j], slot[:, j],
+                                              w[:, j]))
+        two_call = c if two_call is None else two_call + c
+    assert torch.equal(got, two_call)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_combine_slots_on_unaligned_buf(dev, dtype):
+    """A buf that is not 16-byte aligned takes the scalar columns."""
+    from repro_torch.kernels.moe_dispatch import kernel, ref
+
+    E, C, d, T, k = 4, 16, 256, 40, 2
+    buf0, idx, slot, w = _combine_case(T, d, E, C, k, dtype, dev, 5)
+    flat = torch.empty(E * C * d + 1, dtype=dtype, device=dev)
+    buf = flat[1:].view(E, C, d)
+    buf.copy_(buf0)
+    assert buf.data_ptr() % 16 != 0
+    assert torch.equal(kernel.moe_combine_slots(buf, idx, slot, w),
+                       ref.combine_slots_ref(buf, idx, slot, w))
+
+
+def test_moe_ops_take_narrow_integer_ids(dev):
+    """``ops`` converts int8/uint8/int16 ids to int32 before the launch and
+    other weights to float32, so the card takes what the CPU takes: equal
+    bit for bit to the int64/float32 call and to the plain version."""
+    from repro_torch.kernels.moe_dispatch import ops, ref
+
+    T, d, E, C, k = 40, 256, 4, 16, 2
+    buf, idx, slot, w = _combine_case(T, d, E, C, k, torch.bfloat16, dev, 9)
+    idx, slot = idx.clamp(min=0), slot.clamp(min=0)
+    got = ops.combine_slots(buf, idx.to(torch.uint8), slot.to(torch.int16),
+                            w.double())
+    assert torch.equal(got, ops.combine_slots(buf, idx, slot, w))
+    assert torch.equal(got, ref.combine_slots_ref(buf, idx, slot, w))
+    assert torch.equal(ops.combine(buf, idx[:, 0].to(torch.int8),
+                                   slot[:, 0].to(torch.int8), w[:, 0]),
+                       ref.combine_ref(buf, idx[:, 0], slot[:, 0], w[:, 0]))
+    x = buf.reshape(-1, d)[:T]
+    assert torch.equal(ops.dispatch(x, idx[:, 1].to(torch.int16),
+                                    slot[:, 1].to(torch.uint8), E, C),
+                       ref.dispatch_ref(x, idx[:, 1], slot[:, 1], E, C))
+
+
+def test_moe_layer_combine_is_one_launch(dev):
+    """The layer body at the decode shape: ``moe_combine`` rises by one a
+    call, and ``ops.combine_slots`` launches that kernel alone (no
+    conversion, copy or add; the profiler's device events)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import device as D
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.moe_dispatch import ops
+    from repro_torch.models.moe import _route, capacity_per_expert
+
+    cfg = get_config("phi3.5-moe-42b-a6.6b")
+    T, d, E, k = 4, cfg.d_model, cfg.num_experts, cfg.experts_per_token
+    C = capacity_per_expert(T, E, k, cfg.capacity_factor)
+    rng = np.random.default_rng(2)
+    x = _t(rng.normal(size=(T, d)).astype(np.float32), dev).to(
+        torch.bfloat16)
+    router = _t(rng.normal(size=(d, E)).astype(np.float32), dev) / d ** 0.5
+    idx, w, _ = _route({"router": router}, x, cfg)
+    D.reset_launch_counts()
+    for calls in (1, 2, 3):
+        ops.moe_dispatch(None, x, idx, w, cfg, C, lambda p, b, c: b)
+        assert D.launch_counts()["moe_combine"] == calls
+    slot = ops.expert_slots(idx, E)
+    buf = torch.randn((E, C, d), device=dev).to(torch.bfloat16)
+    ops.combine_slots(buf, idx, slot, w)
+    torch.cuda.synchronize()
+    calls = 3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        # the trace may drop its first kernel (while it asks for its
+        # activity buffer): a fill goes first
+        torch.zeros(1, device=dev)
+        for _ in range(calls):
+            ops.combine_slots(buf, idx, slot, w)
+        torch.cuda.synchronize()
+    device_events = [ev.name for ev in prof.events()
+                     if ev.device_type == torch.autograd.DeviceType.CUDA]
+    combines = [name for name in device_events if "combine" in name]
+    assert len(combines) == calls, device_events
+    assert len(device_events) - len(combines) <= 1, device_events
 
 
 def test_group_by_hands_the_card_sorted_ids(dev, monkeypatch):

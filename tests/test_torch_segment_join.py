@@ -148,16 +148,24 @@ def test_radix_rank_out_of_range_ids(n, nbuckets, tblk):
 # hash-table build / probe
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("dup", [False, True])
+@pytest.mark.parametrize("dup", [False, True, "dead"])
 def test_table_build_and_probe_match_pallas(dup):
     """Codes outside the table (negative, >= domain_pad) are ignored by the
     build and gather 0 in the probe; duplicate build codes keep the largest
-    row id + 1."""
-    rng = np.random.default_rng(11 + dup)
+    row id + 1.  ``dead``: 28% of the rows at the dead slot ``domain`` (the
+    fused join's padding rows), radix-ordered by 512-code block as the
+    probe hands them to the build, so they form one run."""
+    rng = np.random.default_rng(11 + (dup is True) + 2 * (dup == "dead"))
     n, dpad, tblk, dblk = 1024, 1024, 256, 512
-    hi = dpad // 8 if dup else dpad + 64
+    hi = dpad // 8 if dup is True else dpad + 64
     bk = rng.integers(-16, hi, n).astype(np.int32)
     brow = rng.permutation(n).astype(np.int32)
+    if dup == "dead":
+        domain = dpad - 100
+        bk = rng.integers(0, domain, n).astype(np.int32)
+        bk[n - n * 28 // 100:] = domain   # the padding rows come last
+        order = np.argsort(bk >> 9, kind="stable")
+        bk, brow = bk[order], order.astype(np.int32)
     pk = rng.integers(-16, dpad + 64, n).astype(np.int32)
     cnt, inv = ops.join_table_build(_t(bk), _t(brow), dpad)
     cnt_j, inv_j = jk.join_table_build_pallas(
