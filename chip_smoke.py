@@ -9,7 +9,10 @@ parent).  The phases: ``moe-dispatch`` (the layer body's dispatch call),
 ``moe-layer`` (the layer body with an identity FFN: dispatch, combine and
 the routing's slots), each at the decode and prefill shapes;
 ``join-build`` (the table build at Q-a's build shape, then Q-a and Q-b
-warm and traced); ``lm`` (phase 6).
+warm and traced); ``join-probe`` (``radix_hash_probe`` at Q-a's shape with
+the probe codes in order and shuffled, then Q-a and Q-b); ``segment-sum``
+(the segment sum's cases at Q-c's shape, then Q-c and Q-e); ``lm`` (phase
+6).
 
 Phases (any mismatch or exception ends the run with a non-zero exit code):
 
@@ -24,10 +27,13 @@ Phases (any mismatch or exception ends the run with a non-zero exit code):
    and probe sides, ``radix_sort_pass`` with the digit passes that ran and
    on columns that vary in chosen digits only, ``join_table_build`` as the
    main path hands it over and without its padding rows, in random order
-   and with all or half the rows at one code, ``segment_sum`` bit for bit
-   against its plain version on the CPU on non-integer values (sorted,
-   with one segment holding half the rows, and unsorted) and on ones (the
-   counts), float32 flash
+   and with all or half the rows at one code, ``join_table_probe`` on the
+   probe codes in row order and the probe side of the join (the parent's
+   radix-ordered composition against one row-order probe, codes in order
+   and shuffled), ``segment_sum`` bit for bit against its plain version on
+   the CPU, with the route the card took, on non-integer values (sorted,
+   with one segment holding half the rows, unsorted), on ones (the counts)
+   and on Q-c's integer cents (sorted, skewed, unsorted), float32 flash
    attention against SDPA, the combine over both routing slots of the
    layer (one launch, against the plain version and the single-slot
    kernels added in turn), and the MoE kernels with device time from the
@@ -38,7 +44,10 @@ Phases (any mismatch or exception ends the run with a non-zero exit code):
    ``--seed``: (Q-a) lineitem ⋈ orders → filter → sort → sum, (Q-b) the same
    with a projected relation root, (Q-c) GROUP BY l_suppkey, (Q-d) orders
    filtered by date, ORDER BY o_custkey, o_orderdate (the per-operator
-   device sort); each answer is held exactly against a numpy oracle written
+   device sort), (Q-e) TPC-H Q1's GROUP BY l_returnflag, l_linestatus with
+   its integer aggregates (sum of l_quantity and of l_extendedprice,
+   count) over all of lineitem: four groups, the largest near half the
+   rows; each answer is held exactly against a numpy oracle written
    here, and the kernels' launch counters must rise during each query;
 4. concurrent serving, ``repro_torch.core.QueryServer(device="cuda")`` over
    the same tables (64 MB shared budget, 1 MB work_mem): a closed loop of
@@ -87,6 +96,7 @@ WARM_RUNS = 5            # warm runs per query; the p50 is over these
 D_1992_01_01 = 8035      # TPC-H STARTDATE, days since 1970-01-01
 D_1998_08_02 = 10440     # ENDDATE - 151 days (last O_ORDERDATE)
 D_1995_03_15 = 9204      # TPC-H Q3's date
+D_1995_06_17 = 9298      # TPC-H CURRENTDATE (§4.2.3)
 H100_BYTES_PER_S = 3.35e12   # HBM3, NVIDIA H100 SXM data sheet
 # the H100 SXM's published peak outside the tensor cores (float32,
 # 67 TFLOP/s), taken as the rate of the scalar integer and float64
@@ -151,16 +161,26 @@ def tpch(scale: float, seed: int):
     partkey = rng.integers(1, int(200_000 * scale) + 1, n_l)
     retail_cents = 90_000 + (partkey // 10) % 20_001 + 100 * (partkey % 1000)
     l_extendedprice = (l_quantity * retail_cents).astype(np.int64)
+    # §4.2.3: received 1..30 days after shipping; L_RETURNFLAG R or A at
+    # random when received by CURRENTDATE, else N; L_LINESTATUS O when
+    # shipped after CURRENTDATE, else F.  Q1's two CHAR(1) group keys are
+    # one dictionary code here: flag (A, N, R) * 2 + status (F, O)
+    l_receiptdate = l_shipdate + rng.integers(1, 31, n_l)
+    flag = np.where(l_receiptdate <= D_1995_06_17,
+                    2 * rng.integers(0, 2, n_l), 1)
+    l_returnflag_linestatus = (2 * flag
+                               + (l_shipdate > D_1995_06_17)).astype(np.int64)
     orders = {"orderkey": orderkey, "o_orderdate": o_orderdate,
               "o_custkey": custkey.astype(np.int64)}
     lineitem = {"orderkey": l_orderkey, "l_suppkey": l_suppkey,
                 "l_shipdate": l_shipdate, "l_quantity": l_quantity,
-                "l_extendedprice": l_extendedprice}
+                "l_extendedprice": l_extendedprice,
+                "l_returnflag_linestatus": l_returnflag_linestatus}
     return orders, lineitem
 
 
 def oracle(orders, lineitem):
-    """The four answers with numpy alone: searchsorted join, masks,
+    """The five answers with numpy alone: searchsorted join, masks,
     lexsort, add.at."""
     import numpy as np
 
@@ -189,10 +209,20 @@ def oracle(orders, lineitem):
     sel = rows[np.lexsort((ood[rows], ock[rows]))]
     qd = {"orderkey": orders["orderkey"][sel], "o_custkey": ock[sel],
           "o_orderdate": ood[sel]}
-    return {"Q-a": qa, "Q-b": qb, "Q-c": qc, "Q-d": qd}
+    # Q-e: Q1's group keys and integer aggregates
+    uniq, inv = np.unique(lineitem["l_returnflag_linestatus"],
+                          return_inverse=True)
+    qe = {"l_returnflag_linestatus": uniq}
+    for c in ("l_quantity", "l_extendedprice"):
+        qe[f"sum_{c}"] = np.zeros(len(uniq), np.float64)
+        np.add.at(qe[f"sum_{c}"], inv, lineitem[c].astype(np.float64))
+    qe["count_orderkey"] = np.bincount(inv).astype(np.float64)
+    return {"Q-a": qa, "Q-b": qb, "Q-c": qc, "Q-d": qd, "Q-e": qe}
 
 
-QUERIES = ("Q-a", "Q-b", "Q-c", "Q-d")
+QUERIES = ("Q-a", "Q-b", "Q-c", "Q-d", "Q-e")
+#: the serving loops' mix (phase 4)
+SERVED = ("Q-a", "Q-b", "Q-c", "Q-d")
 
 
 def queries(sess):
@@ -213,6 +243,12 @@ def queries(sess):
                 .filter(col("o_orderdate") < D_1995_03_15)
                 .sort("o_custkey", "o_orderdate")
                 .select("orderkey", "o_custkey", "o_orderdate")),
+        # Q1 without its date filter, which keeps 98.6% of the lines: the
+        # port filters below a GROUP BY on the host, as the reference does
+        "Q-e": sess.table("lineitem").group_by(
+            "l_returnflag_linestatus", {"l_quantity": "sum",
+                                        "l_extendedprice": "sum",
+                                        "orderkey": "count"}),
     }
 
 
@@ -226,8 +262,8 @@ def check_answer(name, res, want) -> None:
     rel = res.relation
     if rel is None:
         fail(f"{name}: no relation result")
-    if name == "Q-c":
-        order = np.argsort(rel["l_suppkey"], kind="stable")
+    if name in ("Q-c", "Q-e"):  # groups in key order
+        order = np.argsort(rel[next(iter(want))], kind="stable")
         got = {k: rel[k][order] for k in want}
     else:
         got = {k: rel[k] for k in want}
@@ -263,13 +299,30 @@ def time_ms(fn, reps: int = 20) -> float:
 DECODE_CALLS = 200
 
 
+def device_events(prof) -> list:
+    """A trace's device events (kernels, copies, fills)."""
+    import torch
+
+    return [ev for ev in prof.events()
+            if ev.device_type == torch.autograd.DeviceType.CUDA]
+
+
+#: traces taken at most for one number: the card's profiler now and then
+#: returns a session without its device events, or with part of them
+TRACE_TRIES = 5
+
+
 def device_ms_per_call(fn, kernel_name, calls: int = DECODE_CALLS):
     """The device time of one call of ``fn`` and the kernels it launches:
     torch.profiler's kernel times over ``calls`` calls issued back to back,
     divided by ``calls`` (CUDA events around them would time the host's
     enqueue when the host is the slower).  With ``kernel_name``, its launch
-    counter must rise once a call.  Fails when the trace holds no device
-    time."""
+    counter must rise once a call.  A trace counts only where a second
+    trace holds as many device events (a session that lost events, wholly
+    or in part, agrees with no other); the two traces' mean is returned.
+    Fails after ``TRACE_TRIES`` traces without two that agree.  A session
+    of many events may drop its first one or two in every trace, so a
+    count a call can read a little short (0.99 of 1 over 200 calls)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -277,22 +330,30 @@ def device_ms_per_call(fn, kernel_name, calls: int = DECODE_CALLS):
 
     fn()
     torch.cuda.synchronize()
-    before = D.launch_counts()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    if kernel_name is not None:
-        launched = D.launch_counts()[kernel_name] - before[kernel_name]
-        if launched != calls:
-            fail(f"{kernel_name}: {launched} launches in {calls} calls")
-    kernels = [ev for ev in prof.events()
-               if ev.device_type == torch.autograd.DeviceType.CUDA]
-    total_us = sum(ev.device_time_total for ev in kernels)
-    if not kernels or total_us <= 0:
-        fail("the profiler's trace holds no device time")
-    return total_us / calls / 1e3, len(kernels) / calls
+    seen = {}
+    for _ in range(TRACE_TRIES):
+        before = D.launch_counts()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        if kernel_name is not None:
+            launched = D.launch_counts()[kernel_name] - before[kernel_name]
+            if launched != calls:
+                fail(f"{kernel_name}: {launched} launches in {calls} calls")
+        kernels = device_events(prof)
+        total_us = sum(ev.device_time_total for ev in kernels)
+        n = len(kernels)
+        if n and total_us > 0:
+            if n in seen:
+                return (seen[n] + total_us) / 2 / calls / 1e3, n / calls
+            seen[n] = total_us
+        if len(seen) != 1 or n not in seen:
+            print(f"profiler trace: {n} device events over {calls} calls "
+                  f"against {sorted(seen)}, traced again", flush=True)
+    fail(f"{TRACE_TRIES} profiler traces, no two with the same count of "
+         f"device events ({sorted(seen)})")
 
 
 def host_ms_per_call(fn, calls: int = DECODE_CALLS) -> float:
@@ -418,8 +479,9 @@ def kernel_phase(orders, lineitem, dev):
     ids_b, ids_p = j["ids_b"], j["ids_p"]
     rows = []
 
-    # radix_rank at the probe side's shape and the build side's, each
-    # against its plain version; the row is the probe side's
+    # radix_rank at the build side's shape (the main path's; the probe
+    # side is probed in row order) and the probe side's, each against its
+    # plain version; the row is the build side's
     err = 0
     rank_ms, rank_bound = {}, {}
     for side, ids in (("build", ids_b), ("probe", ids_p)):
@@ -436,19 +498,20 @@ def kernel_phase(orders, lineitem, dev):
         print(f"radix_rank {side} side: n={n}, buckets={nblocks}: "
               f"{rank_ms[side]:.4f} ms, bound {rank_bound[side][0]:.4f} ms "
               f"by {rank_bound[side][1]}", flush=True)
-    n = ids_p.numel()
-    t_b, by = rank_bound["probe"]
+    n = ids_b.numel()
+    t_b, by = rank_bound["build"]
     rows.append({"name": "radix_rank", "route": "cuda",
                  "source": "src/repro_torch/csrc/segment_join.cu",
                  "replaces": "src/repro/kernels/segment_join/kernel.py:106",
-                 "max_abs_err": err, "ms": rank_ms["probe"],
-                 "plain_ms": time_ms(lambda: ref.radix_rank_ref(ids_p,
+                 "max_abs_err": err, "ms": rank_ms["build"],
+                 "plain_ms": time_ms(lambda: ref.radix_rank_ref(ids_b,
                                                                 nblocks)),
                  "bound_ms": t_b, "bound_by": by, "library_ms": None,
-                 "build_side_ms": rank_ms["build"],
-                 "build_side_bound_ms": rank_bound["build"][0],
-                 "shape": f"n={n}, buckets={nblocks} (build side "
-                          f"n={ids_b.numel()}: {rank_ms['build']:.4f} ms)"})
+                 "probe_side_ms": rank_ms["probe"],
+                 "probe_side_bound_ms": rank_bound["probe"][0],
+                 "shape": f"n={n}, buckets={nblocks}, the build side (probe "
+                          f"side n={ids_p.numel()}: {rank_ms['probe']:.4f} "
+                          f"ms)"})
 
     # table build over the radix-ordered build side, and its other cases
     bk_ord, brow = j["bk_ord"], j["brow"]
@@ -485,47 +548,129 @@ def kernel_phase(orders, lineitem, dev):
                           f"dead slot (without them: "
                           f"{build_ms['no_padding']:.4f} ms)"})
 
-    # table probe over the radix-ordered probe side
-    pdest, _ = ops.radix_partition(ids_p, nblocks)
-    pk_ord, _ = ops._order(pk0c, pdest)
-    got = K.join_table_probe(pk_ord, cnt_t, inv_t)
-    want = ref.join_table_probe_ref(pk_ord, cnt_t, inv_t)
+    # table probe: the main path's probe codes in their own row order
+    # (lineitem's, as they come), one 8-byte gather a probe from the
+    # build's (cnt, inv) pairs, count and build row straight out
+    got = K.join_table_probe_rows(pk0c, cnt_t, inv_t)
+    want = ref.join_table_probe_rows_ref(pk0c, cnt_t, inv_t)
     err = int_err(got, want)
     for g, w in zip(got, want):
         if not torch.equal(g, w):
             fail("join_table_probe disagrees with its plain version")
-    pk_l = pk_ord.long().clamp(0, dpad - 1)
-
-    def lib_probe():
-        torch.index_select(cnt_t, 0, pk_l)
-        torch.index_select(inv_t, 0, pk_l)
-
-    # the gathers read only the 32-byte sectors of the two tables that this
-    # run's codes fall in, not the whole tables
-    n = pk_ord.numel()
-    hit = pk_ord[(pk_ord >= 0) & (pk_ord < dpad)]
-    sectors = int(torch.unique(hit >> 3).numel())
-    t_b, by = bound(n * 4 + sectors * 32 * 2 + n * 8, n)
+    pairs = cnt_t.as_strided((dpad, 2), (2, 1))  # the (cnt, inv) table
+    pk_l = pk0c.long().clamp(0, dpad - 1)
+    # the gathers read only the 32-byte sectors (4 slots each) of the table
+    # that this run's codes fall in, not the whole table
+    n = pk0c.numel()
+    hit = pk0c[(pk0c >= 0) & (pk0c < dpad)]
+    sectors = int(torch.unique(hit >> 2).numel())
+    t_b, by = bound(n * 4 + sectors * 32 + n * 8, n)
+    side = probe_side_cases(K, ops, ref, j, cnt_t, inv_t, dev)
     rows.append({"name": "join_table_probe", "route": "cuda",
                  "source": "src/repro_torch/csrc/segment_join.cu",
                  "replaces": "src/repro/kernels/segment_join/kernel.py:217",
                  "max_abs_err": err,
-                 "ms": time_ms(lambda: K.join_table_probe(pk_ord, cnt_t,
-                                                          inv_t)),
-                 "plain_ms": time_ms(lambda: ref.join_table_probe_ref(
-                     pk_ord, cnt_t, inv_t)),
+                 "ms": time_ms(lambda: K.join_table_probe_rows(pk0c, cnt_t,
+                                                               inv_t)),
+                 "plain_ms": time_ms(lambda: ref.join_table_probe_rows_ref(
+                     pk0c, cnt_t, inv_t)),
                  "bound_ms": t_b, "bound_by": by,
-                 "library_ms": time_ms(lib_probe),
-                 "shape": f"n={n}, slots={dpad}, sectors read={sectors}"})
+                 "library_ms": time_ms(
+                     lambda: torch.index_select(pairs, 0, pk_l)),
+                 "probe_side_ms": side,
+                 "shape": f"n={n}, slots={dpad}, sectors read={sectors}, "
+                          f"probe codes in row order (shuffled: "
+                          f"{side['new_shuffled']:.4f} ms)"})
 
-    # segment_sum: the GROUP BY's sorted segment ids (l_suppkey's groups
-    # over lineitem, as many segments as rows), with non-integer float64
-    # values from --seed so that the order of the adds shows in the bits;
-    # then one segment holding half the rows, the same rows unsorted (the
-    # join aggregate's case), and all-ones values (the GROUP BY's counts).
-    # Each is held bit for bit against the
-    # plain version on the CPU (index_add_ there adds in row order; on the
-    # card it is atomics, so its card time is only timed)
+    sum_cases, sum_err = segment_sum_cases(K, ref, lineitem, dev)
+    main = sum_cases["cents_sorted"]   # Q-c's own sum
+    rows.append({"name": "segment_sum", "route": "cuda",
+                 "source": "src/repro_torch/csrc/segment_join.cu",
+                 "replaces": "src/repro/kernels/segment_join/kernel.py:59",
+                 "max_abs_err": sum_err, "ms": main["ms"],
+                 "plain_ms": main["plain_ms"],
+                 "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+                 "library_ms": main["library_ms"],
+                 "cases": sum_cases,
+                 "shape": f"n={main['n']}, segments={main['n']}, Q-c's "
+                          f"sorted ids and integer cents ({main['route']} "
+                          f"route); other cases under cases"})
+    return rows
+
+
+def probe_side_cases(K, ops, ref, j, cnt_t, inv_t, dev) -> dict:
+    """The probe side of ``radix_hash_probe`` at Q-a's shape, given the
+    build's table: the parent's composition (radix-order the probe codes,
+    probe, gather both results back, subtract 1) against one row-order
+    probe, with Q-a's probe codes as they come and with their rows
+    shuffled (the worst case for L2); both held against the plain
+    version.  Returns CUDA-event ms by composition and case."""
+    import torch
+
+    shift, nblocks = j["shift"], j["nblocks"]
+
+    def parent(pk):
+        pdest, _ = ops.radix_partition(pk >> shift, nblocks)
+        pk_ord, _ = ops._order(pk, pdest)
+        cnt_po, inv_po = K.join_table_probe(pk_ord, cnt_t, inv_t)
+        back = pdest.long()
+        return cnt_po[back], inv_po[back] - 1
+
+    def new(pk):
+        return K.join_table_probe_rows(pk, cnt_t, inv_t)
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    pk0c = j["pk0c"]
+    codes = {"in_order": pk0c,
+             "shuffled": pk0c[torch.randperm(pk0c.numel(), generator=gen,
+                                             device=dev)].contiguous()}
+    out = {}
+    for what, pk in codes.items():
+        want = ref.join_table_probe_rows_ref(pk, cnt_t, inv_t)
+        for name, fn in (("parent", parent), ("new", new)):
+            if not all(torch.equal(g, w) for g, w in zip(fn(pk), want)):
+                fail(f"the probe side ({name} composition, {what}) "
+                     f"disagrees with its plain version")
+            key = f"{name}_{what}"
+            out[key] = time_ms(lambda: fn(pk))
+            out[key + "_device"], out[key + "_kernels"] = \
+                device_ms_per_call(lambda: fn(pk), None, 20)
+        print(f"probe side {what}: parent composition "
+              f"{out['parent_' + what]:.4f} ms (device "
+              f"{out['parent_' + what + '_device']:.4f} ms in "
+              f"{out['parent_' + what + '_kernels']:g} kernels), row-order "
+              f"probe {out['new_' + what]:.4f} ms (device "
+              f"{out['new_' + what + '_device']:.4f} ms in "
+              f"{out['new_' + what + '_kernels']:g}), both equal to the "
+              f"plain version", flush=True)
+    return out
+
+
+def segment_sum_call(K, ids, v, S: int):
+    """``K.segment_sum`` over ``(ids, v)`` as a call of no arguments.  A
+    checkout whose kernel takes the caller's ``ids_sorted`` gets True where
+    the ids never decrease, as its GROUP BY passed it."""
+    import inspect
+
+    if "ids_sorted" in inspect.signature(K.segment_sum).parameters:
+        word = bool((ids[1:] >= ids[:-1]).all())
+        return lambda: K.segment_sum(ids, v, S, word)
+    return lambda: K.segment_sum(ids, v, S)
+
+
+def segment_sum_cases(K, ref, lineitem, dev, with_route: bool = True):
+    """``segment_sum`` at Q-c's shape (the GROUP BY's sorted segment ids of
+    l_suppkey over lineitem, as many segments as rows): non-integer
+    float64 values from --seed (so that the order of the adds shows in the
+    bits) sorted, with one segment holding half the rows, and unsorted;
+    all-ones values (Q-c's counts); and Q-c's own integer cents sorted,
+    skewed and unsorted.  Each is held bit for bit against the plain
+    version on the CPU (index_add_ there adds in row order; on the card it
+    is atomics), three runs; with ``with_route`` the route the card took
+    (``kernel.segment_sum_route``) must be the one the plain predicate
+    gives.  Returns ({case: numbers}, the largest |card - CPU|)."""
+    import torch
+
     keys = torch.from_numpy(lineitem["l_suppkey"]).to(dev)
     order = torch.argsort(keys, stable=True)
     sk = keys[order]
@@ -536,53 +681,67 @@ def kernel_phase(orders, lineitem, dev):
     S = seg.numel()
     groups = int(seg[-1]) + 1
     gen = torch.Generator(device=dev).manual_seed(7)
-    vals = (torch.from_numpy(lineitem["l_extendedprice"]).to(dev).to(
-        torch.float64)[order] / 100.0 * (1.0 + 1e-3 * torch.randn(
-            S, generator=gen, device=dev, dtype=torch.float64))).contiguous()
+    cents = torch.from_numpy(lineitem["l_extendedprice"]).to(dev).to(
+        torch.float64)[order].contiguous()
+    vals = (cents / 100.0 * (1.0 + 1e-3 * torch.randn(
+        S, generator=gen, device=dev, dtype=torch.float64))).contiguous()
     skew = seg.clone()
     skew[S // 4: S // 4 + S // 2] = skew[S // 4]
     skew = torch.sort(skew).values.contiguous()
     shuffle = torch.randperm(S, generator=gen, device=dev)
-    cases = {"sorted": (seg, vals, True),
-             "skewed": (skew, vals, True),
-             "unsorted": (seg[shuffle].contiguous(),
-                          vals[shuffle].contiguous(), False),
-             "count": (seg, torch.ones_like(vals), True)}  # Q-c's counts
-    sum_ms = {}
-    sum_err = 0.0
-    for what, (ids, v, ids_sorted) in cases.items():
+    unsorted = seg[shuffle].contiguous()
+    cases = {"sorted": (seg, vals),
+             "skewed": (skew, vals),
+             "unsorted": (unsorted, vals[shuffle].contiguous()),
+             "count": (seg, torch.ones_like(vals)),   # Q-c's counts
+             "cents_sorted": (seg, cents),            # Q-c's sum
+             "cents_skewed": (skew, cents),
+             "cents_unsorted": (unsorted, cents[shuffle].contiguous())}
+    # bytes: ids and values read once, the sums written once; one add a row
+    t_b, by = bound(S * 12 + S * 8, S)
+    lib_out = torch.zeros(S, dtype=torch.float64, device=dev)
+    out, err = {}, 0.0
+    for what, (ids, v) in cases.items():
         want = ref.segment_sum_ref(ids.cpu(), v.cpu(), S)
+        call = segment_sum_call(K, ids, v, S)
+        route = None
         for _ in range(3):  # the same bits run after run
-            got = K.segment_sum(ids, v, S, ids_sorted).cpu()
-            sum_err = max(sum_err, float((got - want).abs().max()))
+            if with_route:
+                got, route = K.segment_sum_route(ids, v, S)
+            else:
+                got = call()
+            got = got.cpu()
+            err = max(err, float((got - want).abs().max()))
             if not torch.equal(got.view(torch.int64), want.view(torch.int64)):
                 fail(f"segment_sum ({what}) differs from its plain version "
                      f"on the CPU in {int((got != want).sum())} segments")
-        sum_ms[what] = time_ms(lambda: K.segment_sum(ids, v, S, ids_sorted),
-                               20 if what != "skewed" else 5)
+        if with_route:
+            nondecreasing = bool((ids[1:] >= ids[:-1]).all())
+            expect = ("exact" if ref.sum_is_order_free_ref(v.cpu()) else
+                      "runs" if nondecreasing else "grouped")
+            if route != expect:
+                fail(f"segment_sum ({what}) took the {route} route, the "
+                     f"plain predicate says {expect}")
+        ids_l = ids.long()
+        reps = 5 if what == "skewed" else 20
+        ms = time_ms(call, reps)
+        dev_ms, n_kernels = device_ms_per_call(call, None, reps)
+        out[what] = {"n": S, "route": route, "ms": ms, "device_ms": dev_ms,
+                     "kernels_per_call": n_kernels,
+                     "host_ms": host_ms_per_call(call, reps),
+                     "bound_ms": t_b, "bound_by": by,
+                     "library_ms": time_ms(
+                         lambda: lib_out.zero_().index_add_(0, ids_l, v)),
+                     "plain_ms": time_ms(
+                         lambda: ref.segment_sum_ref(ids, v, S))}
         print(f"segment_sum {what}: n={S}, segments={S} ({groups} groups"
-              f"{', one of them half the rows' if what == 'skewed' else ''}"
-              f"{', values all 1' if what == 'count' else ''}), "
-              f"ids_sorted={ids_sorted}: {sum_ms[what]:.4f} ms, equal bit "
-              f"for bit to the plain version on the CPU", flush=True)
-    seg_l = seg.long()
-    lib_out = torch.zeros(S, dtype=torch.float64, device=dev)
-    t_b, by = bound(S * 12 + S * 8, S)
-    rows.append({"name": "segment_sum", "route": "cuda",
-                 "source": "src/repro_torch/csrc/segment_join.cu",
-                 "replaces": "src/repro/kernels/segment_join/kernel.py:59",
-                 "max_abs_err": sum_err, "ms": sum_ms["sorted"],
-                 "plain_ms": time_ms(lambda: ref.segment_sum_ref(seg, vals,
-                                                                 S)),
-                 "bound_ms": t_b, "bound_by": by,
-                 "library_ms": time_ms(
-                     lambda: lib_out.zero_().index_add_(0, seg_l, vals)),
-                 "skewed_ms": sum_ms["skewed"],
-                 "unsorted_ms": sum_ms["unsorted"],
-                 "shape": f"n={S}, segments={S} ({groups} groups), sorted "
-                          f"ids (skewed: {sum_ms['skewed']:.4f} ms, "
-                          f"unsorted: {sum_ms['unsorted']:.4f} ms)"})
-    return rows
+              f"{', one of them half the rows' if 'skewed' in what else ''}"
+              f"), route {route}: {ms:.4f} ms (device {dev_ms:.4f} ms in "
+              f"{n_kernels:g} kernels, host {out[what]['host_ms']:.4f} ms a "
+              f"call; index_add_ {out[what]['library_ms']:.4f} ms, bound "
+              f"{t_b:.4f} ms), equal bit for bit to the plain version on the "
+              f"CPU", flush=True)
+    return out, err
 
 
 def sort_kernel_phase(orders, dev):
@@ -1087,6 +1246,27 @@ def moe_layer_calls(dev, seed: int) -> dict:
     return out
 
 
+def query_turns(names, orders, lineitem, want, kernels) -> dict:
+    """Queries ``names`` through ``Session(policy="tensor")``: each checked
+    against the oracle, then the warm p50 of ``WARM_RUNS`` and one traced
+    warm run's wall and device time, and the device time of the kernels
+    whose names hold one of ``kernels`` (``Memcpy`` for the copies)."""
+    qs = queries(tensor_session(orders, lineitem))
+    out = {}
+    for name in names:
+        q = qs[name]
+        check_answer(name, q.collect(), want[name])
+        _, warm = warm_runs(name, q, want[name])
+        prof, wall_us = traced_run(q)
+        rows, busy = device_rows(prof)
+        out[name] = {"warm_p50_ms": statistics.median(warm) * 1e3,
+                     "traced_wall_us": wall_us, "device_us": busy,
+                     "device_events": sum(r[1] for r in rows)}
+        for k in (*kernels, "Memcpy"):
+            out[name][f"{k}_us"] = sum(us for us, _, key in rows if k in key)
+    return out
+
+
 def join_build_calls(dev, seed: int) -> dict:
     """``--only join-build``: ``kernel.join_table_build(bk_ord, brow, dpad)``
     at Q-a's build shape, as the main path hands it over and in the other
@@ -1108,18 +1288,100 @@ def join_build_calls(dev, seed: int) -> dict:
         device_ms_per_call(lambda: K.join_table_build(
             j["bk_ord"], j["brow"], j["dpad"]), "join_table_build", 20)
     del j
-    qs = queries(tensor_session(orders, lineitem))
-    for name in ("Q-a", "Q-b"):
-        q = qs[name]
-        check_answer(name, q.collect(), want[name])
-        _, warm = warm_runs(name, q, want[name])
-        prof, wall_us = traced_run(q)
-        rows, busy = device_rows(prof)
-        out[name] = {"warm_p50_ms": statistics.median(warm) * 1e3,
-                     "traced_wall_us": wall_us, "device_us": busy,
-                     "join_table_build_us": sum(
-                         us for us, _, key in rows
-                         if "join_table_build" in key)}
+    out.update(query_turns(("Q-a", "Q-b"), orders, lineitem, want,
+                           ("join_table_build",)))
+    return out
+
+
+def join_probe_calls(dev, seed: int) -> dict:
+    """``--only join-probe``: ``ops.radix_hash_probe`` at Q-a's shape (the
+    codes ``join_inputs`` gives: 2,097,152 build rows, 8,388,608 probes)
+    with the probe codes as they come and with their rows shuffled: CUDA
+    events, device time and kernels a call (profiler), each call held
+    against the plain scatter oracle on the card; the probe kernel alone
+    on the radix-ordered codes; then Q-a and Q-b (warm p50, traced device
+    time, the probe and radix kernels' share).  It calls only what every
+    slice of the port offers, so that two checkouts can be timed in
+    turns."""
+    import torch
+
+    from repro_torch.kernels.segment_join import kernel as K
+    from repro_torch.kernels.segment_join import ops, ref
+
+    orders, lineitem = tpch(1.0, seed)
+    want = oracle(orders, lineitem)
+    j = join_inputs(orders, lineitem, dev)
+    bk, domain = j["bk0c"], j["domain"]
+    gen = torch.Generator(device=dev).manual_seed(13)
+    pk0c = j["pk0c"]
+    codes = {"in_order": pk0c,
+             "shuffled": pk0c[torch.randperm(pk0c.numel(), generator=gen,
+                                             device=dev)].contiguous()}
+    out = {}
+    for what, pk in codes.items():
+        got = ops.radix_hash_probe(bk, pk, domain)
+        for g, w in zip(got, ref.radix_hash_probe_ref(bk, pk, domain)):
+            if not torch.equal(g, w):
+                fail(f"radix_hash_probe ({what}) disagrees with its plain "
+                     f"version")
+        dev_ms, n_kernels = device_ms_per_call(
+            lambda: ops.radix_hash_probe(bk, pk, domain), None, 20)
+        out[what] = {"ms": time_ms(lambda: ops.radix_hash_probe(bk, pk,
+                                                                domain)),
+                     "device_ms": dev_ms, "kernels_per_call": n_kernels}
+        print(f"radix_hash_probe {what}: {out[what]['ms']:.4f} ms, device "
+              f"{dev_ms:.4f} ms in {n_kernels} kernels a call", flush=True)
+    cnt_t, inv_t = K.join_table_build(j["bk_ord"], j["brow"], j["dpad"])
+    pdest, _ = ops.radix_partition(j["ids_p"], j["nblocks"])
+    pk_ord, _ = ops._order(pk0c, pdest)
+    out["probe_kernel_radix_order_ms"] = time_ms(
+        lambda: K.join_table_probe(pk_ord, cnt_t, inv_t))
+    out["probe_kernel_radix_order_device_ms"], _ = device_ms_per_call(
+        lambda: K.join_table_probe(pk_ord, cnt_t, inv_t), None, 20)
+    del j, cnt_t, inv_t, pdest, pk_ord, codes
+    out.update(query_turns(("Q-a", "Q-b"), orders, lineitem, want,
+                           ("join_table_probe", "radix")))
+    return out
+
+
+def segment_sum_calls(dev, seed: int) -> dict:
+    """``--only segment-sum``: the cases of ``segment_sum_cases`` at Q-c's
+    shape (the route of each too, where the checkout offers
+    ``kernel.segment_sum_route``), where the device time of Q-c's own sum
+    goes, then Q-c and Q-e (warm p50, traced device time, the segment
+    sum's share).  It calls only what every slice of the port offers, so
+    that two checkouts can be timed in turns."""
+    from repro_torch.kernels.segment_join import kernel as K
+    from repro_torch.kernels.segment_join import ref
+
+    orders, lineitem = tpch(1.0, seed)
+    want = oracle(orders, lineitem)
+    cases, err = segment_sum_cases(K, ref, lineitem, dev,
+                                   hasattr(K, "segment_sum_route"))
+    out = {"cases": cases, "max_abs_err": err}
+    # where the device time of Q-c's own sum goes, kernel by kernel
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    cents = torch.from_numpy(lineitem["l_extendedprice"]).to(dev).double()
+    n = cents.numel()
+    seg = torch.arange(n, device=dev, dtype=torch.int32) // 600
+    call = segment_sum_call(K, seg, cents, n)
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(20):
+            call()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows, _ = device_rows(prof)
+    out["cents_runs_kernels_us"] = {key[:60]: us / 20 for us, _, key in rows}
+    print_profile("segment_sum, integer cents in runs of 600 rows, 20 calls",
+                  prof, wall_us)
+    out.update(query_turns(("Q-c", "Q-e"), orders, lineitem, want,
+                           ("segment_sum", "radix")))
     return out
 
 
@@ -1153,17 +1415,30 @@ def warm_runs(name, q, want, runs: int = WARM_RUNS):
 
 def traced_run(q):
     """One warm run of query ``q`` under torch.profiler: the profile and
-    the run's wall time in us, up to the card's last kernel."""
+    the run's wall time in us, up to the card's last kernel.  Runs are
+    traced until two hold as many device events (a trace that lost
+    events, wholly or in part, agrees with no other); the second of them
+    is returned.  Fails after ``TRACE_TRIES`` runs."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        q.collect()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    return prof, wall_us
+    seen = set()
+    for _ in range(TRACE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            q.collect()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        n = len(device_events(prof))
+        if n and n in seen:
+            return prof, wall_us
+        if seen:
+            print(f"query trace: {n} device events against {sorted(seen)} "
+                  f"before, traced again", flush=True)
+        seen.add(n)
+    fail(f"{TRACE_TRIES} traces of one query, no two with the same count "
+         f"of device events ({sorted(seen)})")
 
 
 def main_path(orders, lineitem, want):
@@ -1177,6 +1452,7 @@ def main_path(orders, lineitem, want):
         "Q-b": ("radix_rank", "join_table_build", "join_table_probe"),
         "Q-c": ("segment_sum",),
         "Q-d": ("radix_sort_pass",),
+        "Q-e": ("segment_sum",),
     }
     torch.cuda.reset_peak_memory_stats()
     report = {}
@@ -1252,7 +1528,7 @@ def serving_closed(orders, lineitem, want, policy):
                          total_mem=SERVE_TOTAL_MEM, work_mem=SERVE_WORK_MEM,
                          policy=policy, device="cuda")
     qs = queries(server.session)
-    names = list(qs)
+    names = list(SERVED)
     D.reset_launch_counts()
     rep = server.serve([qs[k] for k in names], concurrency=8,
                        queries_per_worker=4, warmup=1)
@@ -1277,7 +1553,7 @@ def serving_open(server, policy, want, seed: int):
     from repro_torch.core import ArrivalProcess, TenantClass
 
     qs = queries(server.session)
-    names = list(qs)
+    names = list(SERVED)
     wl = [qs[k] for k in names]
     D.reset_launch_counts()
     rep = server.serve_open(
@@ -1541,7 +1817,8 @@ def lm_agreement(seed: int) -> dict:
 
 #: the ``--only`` phases besides ``lm`` (phase 6, run by ``lm_serving``)
 ONLY = {"moe-dispatch": dispatch_calls, "moe-layer": moe_layer_calls,
-        "join-build": join_build_calls}
+        "join-build": join_build_calls, "join-probe": join_probe_calls,
+        "segment-sum": segment_sum_calls}
 
 
 def main() -> None:
@@ -1558,8 +1835,12 @@ def main() -> None:
                          "dispatch call and moe-layer the layer body with "
                          "an identity FFN at the decode and prefill "
                          "shapes, join-build the table build at Q-a's "
-                         "build shape and then Q-a and Q-b, lm is phase 6 "
-                         "(with --profile, its trace)")
+                         "build shape and then Q-a and Q-b, join-probe "
+                         "radix_hash_probe at Q-a's shape (probe codes in "
+                         "order and shuffled) and then Q-a and Q-b, "
+                         "segment-sum the segment sum's cases at Q-c's "
+                         "shape and then Q-c and Q-e, lm is phase 6 (with "
+                         "--profile, its trace)")
     ap.add_argument("--tree", type=Path,
                     help="with --only: drive the repro_torch package of "
                          "this checkout (e.g. a parent commit unpacked with "
@@ -1601,7 +1882,7 @@ def main() -> None:
             "flash_attention_sm90", "moe_dispatch")
     if args.only in ("moe-dispatch", "moe-layer"):
         libs = ("moe_dispatch",)
-    elif args.only == "join-build":
+    elif args.only in ("join-build", "join-probe", "segment-sum"):
         libs = ("segment_join",)
     for lib in libs:  # the first call builds every source, in parallel
         D.kernel_library(lib)
@@ -1628,7 +1909,9 @@ def main() -> None:
           f"{len(lineitem['orderkey'])} lineitems, Q-b rows "
           f"{len(want['Q-b']['orderkey'])}, Q-c groups "
           f"{len(want['Q-c']['l_suppkey'])}, Q-d rows "
-          f"{len(want['Q-d']['orderkey'])} "
+          f"{len(want['Q-d']['orderkey'])}, Q-e groups "
+          f"{len(want['Q-e']['l_returnflag_linestatus'])} (rows "
+          f"{[int(c) for c in want['Q-e']['count_orderkey']]}) "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
     # phase 2: kernels against their plain versions

@@ -158,14 +158,15 @@ def _group_reduce_impl(keys, valid, cols, fns, num_segments):
     results = []
     for col, fn in zip(cols, fns):
         v = col.to(torch.float64)[order]
-        # seg never decreases (a cumsum over the sorted keys), so each
-        # segment's rows are contiguous
+        # seg never decreases (a cumsum over the sorted keys): where the
+        # sum is not exact in every order, the card chains its runs as they
+        # come
         if fn == "sum":
             r = segment_sum_dispatch(torch.where(vmask, v, 0.0), seg,
-                                     num_segments, ids_sorted=True)
+                                     num_segments)
         elif fn == "count":
             r = segment_sum_dispatch(vmask.to(torch.float64), seg,
-                                     num_segments, ids_sorted=True)
+                                     num_segments)
         elif fn == "min":
             r = torch.full((num_segments,), float("inf"), dtype=torch.float64,
                            device=dev).scatter_reduce_(

@@ -87,16 +87,13 @@ def capacity_bucket(n: int) -> int:
 # ---------------------------------------------------------------------------
 
 def segment_sum_dispatch(values: torch.Tensor, seg_ids: torch.Tensor,
-                         num_segments: int,
-                         ids_sorted: bool = False) -> torch.Tensor:
+                         num_segments: int) -> torch.Tensor:
     """Segment sum in float64, each segment in row order: the CUDA kernel
     for CUDA tensors, the plain version for CPU tensors
-    (:func:`repro_torch.kernels.segment_join.ops.segment_sum`).
-    ``ids_sorted``: each segment's rows are contiguous, which the caller
-    must know; the card does not check it, and a wrong True gives wrong
-    sums there."""
+    (:func:`repro_torch.kernels.segment_join.ops.segment_sum`).  The card
+    picks its route from the data, with no host sync."""
     from ..kernels.segment_join.ops import segment_sum
-    return segment_sum(seg_ids, values, num_segments, ids_sorted)
+    return segment_sum(seg_ids, values, num_segments)
 
 
 def radix_hash_probe_dispatch(bk_codes: torch.Tensor, pk_codes: torch.Tensor,

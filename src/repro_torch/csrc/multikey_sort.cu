@@ -112,6 +112,7 @@ struct PermEnds {
   __device__ void identity(long long i) const {
     perm_out[i] = perm_in ? perm_in[i] : static_cast<int64_t>(i);
   }
+  __device__ bool skip() const { return false; }
 };
 
 inline size_t key_bytes(int elem_bytes) { return elem_bytes > 4 ? 8 : 4; }

@@ -2,7 +2,10 @@
 // segment_join.cu (radix_rank) and multikey_sort.cu (radix_sort_pass).  The
 // sort carries (key, position) pairs through the digits, least significant
 // first; each includes this header and supplies a small struct ("ends")
-// that says where the first pass reads its keys and what the last writes.
+// that says where the first pass reads its keys and what the last writes,
+// and whether the sort is wanted at all (ends.skip(), read on the device as
+// each kernel starts: a skipped sort costs one near-empty launch a kernel
+// and no host sync).
 //
 // Every digit pass ranks 2,048-row tiles the same way (digit_pass_kernel):
 // each warp of the tile's block counts the digits of its 256 consecutive
@@ -333,6 +336,7 @@ __global__ void __launch_bounds__(kThreads)
 tile_hist_kernel(Ends ends, Buffers<K> buf, long long n, int pass,
                  int num_tiles, int32_t* __restrict__ hist) {
   __shared__ int32_t cnt[kBuckets];
+  if (ends.skip()) return;
   const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
   cnt[tid] = 0;
   __syncthreads();
@@ -380,9 +384,11 @@ tile_hist_kernel(Ends ends, Buffers<K> buf, long long n, int pass,
 // Counted schedule, step b: block d turns hist[d][0, num_tiles) into the
 // count of digit d in the tiles before each, in place, and writes the
 // digit's total into digit_counts[d].
+template <typename Ends>
 __global__ void __launch_bounds__(kThreads)
-column_scan_kernel(int32_t* __restrict__ hist, int num_tiles,
+column_scan_kernel(Ends ends, int32_t* __restrict__ hist, int num_tiles,
                    int32_t* __restrict__ digit_counts) {
+  if (ends.skip()) return;
   int32_t* row = hist + static_cast<long long>(blockIdx.x) * num_tiles;
   const int32_t total = block_exclusive_scan<kThreads>(row, row, num_tiles, 0);
   if (threadIdx.x == 0) digit_counts[blockIdx.x] = total;
@@ -401,6 +407,7 @@ digit_pass_kernel(Ends ends, Buffers<K> buf, long long n, int pass,
   __shared__ int32_t cnt[kWarps][kBuckets];
   __shared__ int32_t warp_sums[kWarps];
   __shared__ unsigned int tile_sh;
+  if (ends.skip()) return;
   const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
   const unsigned mask = running_digits(st, num_digits, kChained);
   if (!((mask >> pass) & 1u)) {

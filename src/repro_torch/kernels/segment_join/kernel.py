@@ -14,7 +14,11 @@ Kernels and the TPU kernels they replace
   * :func:`segment_sum` ← ``segment_sum_pallas``
   * :func:`radix_rank` ← ``radix_rank_pallas``
   * :func:`join_table_build` ← ``join_table_build_pallas``
-  * :func:`join_table_probe` ← ``join_table_probe_pallas``
+  * :func:`join_table_probe` and :func:`join_table_probe_rows` ←
+    ``join_table_probe_pallas``
+
+:func:`segment_sum_route` is a test hook: the sums and the route the card
+chose for them (it waits for the card).
 """
 from __future__ import annotations
 
@@ -25,14 +29,21 @@ import torch
 from ...device import (count_launch, device_guard, kernel_library,
                        stream_handle)
 
-__all__ = ["segment_sum", "radix_rank", "join_table_build",
-           "join_table_probe", "RADIX_TILE"]
+__all__ = ["segment_sum", "segment_sum_route", "radix_rank",
+           "join_table_build", "join_table_probe", "join_table_probe_rows",
+           "RADIX_TILE", "SUM_ROUTES"]
 
 #: the TPU kernel's tile argument, kept in :func:`radix_rank`'s signature;
 #: the Hopper kernel sorts whole columns and does not read it
 RADIX_TILE = 16384
 
 _INT_MAX = 2**31 - 1
+
+#: the routes of :func:`segment_sum`, by the card's route word
+#: (``SumState::route`` in ``csrc/segment_join.cu``): exact in any order
+#: (one pass with atomics), the row-order chain over the runs of the ids as
+#: they come, or over their stably grouped copy
+SUM_ROUTES = {1: "exact", 2: "runs", 3: "grouped"}
 
 
 def _lib() -> ctypes.CDLL:
@@ -41,12 +52,16 @@ def _lib() -> ctypes.CDLL:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.repro_segment_sum_f64_scratch_bytes.argtypes = [ll, i]
         lib.repro_segment_sum_f64_scratch_bytes.restype = ll
-        lib.repro_segment_sum_f64.argtypes = [p, p, ll, p, i, i, p, p]
+        lib.repro_segment_sum_f64.argtypes = [p, p, ll, p, i, p, p]
+        for fn in (lib.repro_segment_sum_route_offset,
+                   lib.repro_segment_sum_state_bytes):
+            fn.argtypes = []
+            fn.restype = ll
         lib.repro_radix_rank_scratch_bytes.argtypes = [ll, i]
         lib.repro_radix_rank_scratch_bytes.restype = ll
         lib.repro_radix_rank.argtypes = [p, ll, i, p, p, p, p]
-        lib.repro_join_table_build.argtypes = [p, p, ll, p, p, i, p]
-        lib.repro_join_table_probe.argtypes = [p, ll, p, p, i, p, p, p]
+        lib.repro_join_table_build.argtypes = [p, p, ll, p, i, p]
+        lib.repro_join_table_probe.argtypes = [p, ll, p, p, i, i, i, p, p, p]
         for fn in (lib.repro_segment_sum_f64, lib.repro_radix_rank,
                    lib.repro_join_table_build, lib.repro_join_table_probe):
             fn.restype = ctypes.c_int
@@ -92,18 +107,10 @@ def _launch(name: str, fn, *args) -> None:
     count_launch(name)
 
 
-def segment_sum(seg_ids: torch.Tensor, values: torch.Tensor,
-                num_segments: int, ids_sorted: bool = False) -> torch.Tensor:
-    """``sums[s] = Σ values[i]`` over ``seg_ids[i] == s`` (int32 ids, float64
-    values); ids outside ``[0, num_segments)`` are dropped.  Each segment is
-    summed in ascending row order from +0.0, so the result has the bits of
-    :func:`.ref.segment_sum_ref` on the CPU, on every run.  ``ids_sorted``
-    says that each segment's rows are contiguous (the GROUP BY's ids, out of
-    a cumsum over sorted keys): the caller knows it, and the kernel does
-    not check it.  A wrong True gives wrong sums: each run of a segment
-    writes its own sum over the segment's, and one of them stays.  Other ids are
-    first grouped stably by segment (the digit passes of
-    :func:`radix_rank`) into scratch."""
+def _segment_sum(seg_ids, values, num_segments):
+    """Launch the segment sum; returns ``(sums, state)``, the state being
+    the bytes after the sums in their zeroed allocation (``None`` when
+    nothing was launched)."""
     _require(seg_ids, torch.int32, "seg_ids")
     _require(values, torch.float64, "values")
     if seg_ids.shape != values.shape:
@@ -111,23 +118,53 @@ def segment_sum(seg_ids: torch.Tensor, values: torch.Tensor,
                          f"{tuple(values.shape)} differ in length")
     dev = _same_device(seg_ids, values)
     S = _size(num_segments, "num_segments")
-    out = torch.zeros(S, dtype=torch.float64, device=dev)
     n = seg_ids.shape[0]
     if n == 0 or S == 0:
-        return out
+        return torch.zeros(S, dtype=torch.float64, device=dev), None
+    _size(n, "rows")
     lib = _lib()
-    scratch = None  # sorted ids need none
-    if not ids_sorted:
-        _size(n, "rows")
-        scratch = torch.empty(lib.repro_segment_sum_f64_scratch_bytes(n, S),
-                              dtype=torch.uint8, device=dev)
+    # the sums and, after them, the route state: zeroed by one launch
+    state_words = -(-lib.repro_segment_sum_state_bytes() // 8)
+    buf = torch.zeros(S + state_words, dtype=torch.float64, device=dev)
+    scratch = torch.empty(lib.repro_segment_sum_f64_scratch_bytes(n, S),
+                          dtype=torch.uint8, device=dev)
     with device_guard(dev):
         _launch("segment_sum", lib.repro_segment_sum_f64,
-                seg_ids.data_ptr(), values.data_ptr(), n, out.data_ptr(), S,
-                int(bool(ids_sorted)),
-                None if scratch is None else scratch.data_ptr(),
-                stream_handle(dev))
-    return out
+                seg_ids.data_ptr(), values.data_ptr(), n, buf.data_ptr(), S,
+                scratch.data_ptr(), stream_handle(dev))
+    return buf[:S], buf[S:]
+
+
+def segment_sum(seg_ids: torch.Tensor, values: torch.Tensor,
+                num_segments: int) -> torch.Tensor:
+    """``sums[s] = Σ values[i]`` over ``seg_ids[i] == s`` (int32 ids, float64
+    values); ids outside ``[0, num_segments)`` are dropped.  The result has
+    the bits of :func:`.ref.segment_sum_ref` on the CPU (each segment summed
+    in ascending row order from +0.0), on every run.
+
+    The card picks the route itself, with no host sync.  Where the sum is
+    exact in any order (:func:`.ref.sum_is_order_free_ref`: integer cents,
+    counts), one pass adds each run piece into the output with atomics,
+    sorted ids or not.  Otherwise each segment is one chain of adds in row
+    order: over the ids as they come where no id is below the one before
+    it (the GROUP BY's), else over a copy grouped stably by segment (the
+    digit passes of :func:`radix_rank`), which contiguous segments in no
+    order take too.  The grouping's kernels are launched, and its scratch
+    allocated, on every call: the host does not know the route."""
+    return _segment_sum(seg_ids, values, num_segments)[0]
+
+
+def segment_sum_route(seg_ids: torch.Tensor, values: torch.Tensor,
+                      num_segments: int):
+    """:func:`segment_sum` and the route the card took for it, a key of
+    :data:`SUM_ROUTES` (``None`` when nothing was launched).  Reading the
+    route back waits for the card: for tests and the smoke run only."""
+    out, state = _segment_sum(seg_ids, values, num_segments)
+    if state is None:
+        return out, None
+    off = _lib().repro_segment_sum_route_offset()
+    word = state.view(torch.int32)[off // 4]
+    return out, SUM_ROUTES[int(word.item())]
 
 
 def radix_rank(bucket_ids: torch.Tensor, num_buckets: int,
@@ -159,33 +196,50 @@ def radix_rank(bucket_ids: torch.Tensor, num_buckets: int,
 def join_table_build(bk: torch.Tensor, brow: torch.Tensor, domain_pad: int):
     """``(cnt, inv)`` over ``[domain_pad]`` slots (int32): build rows per
     code and the largest ``brow + 1`` (0 = empty slot); codes outside
-    ``[0, domain_pad)`` are ignored."""
+    ``[0, domain_pad)`` are ignored.  The two are the column views of one
+    zeroed ``[domain_pad, 2]`` table of (cnt, inv) pairs, which
+    :func:`join_table_probe` reads with one gather a probe."""
     _require(bk, torch.int32, "bk")
     _require(brow, torch.int32, "brow")
     if bk.shape != brow.shape:
         raise ValueError("bk and brow differ in length")
     dev = _same_device(bk, brow)
     D = _size(domain_pad, "domain_pad")
-    # both tables in one allocation, zeroed by one launch
-    cnt, inv = torch.zeros((2, D), dtype=torch.int32, device=dev).unbind(0)
+    table = torch.zeros((D, 2), dtype=torch.int32, device=dev)
     n = bk.shape[0]
-    if n == 0 or D == 0:
-        return cnt, inv
-    with device_guard(dev):
-        _launch("join_table_build", _lib().repro_join_table_build,
-                bk.data_ptr(), brow.data_ptr(), n, cnt.data_ptr(),
-                inv.data_ptr(), D, stream_handle(dev))
-    return cnt, inv
+    if n > 0 and D > 0:
+        with device_guard(dev):
+            _launch("join_table_build", _lib().repro_join_table_build,
+                    bk.data_ptr(), brow.data_ptr(), n, table.data_ptr(), D,
+                    stream_handle(dev))
+    return table[:, 0], table[:, 1]
 
 
-def join_table_probe(pk: torch.Tensor, cnt: torch.Tensor, inv: torch.Tensor):
-    """Per probe row ``(cnt[c], inv[c])`` (int32); codes outside
-    ``[0, len(cnt))`` give 0."""
-    _require(pk, torch.int32, "pk")
-    _require(cnt, torch.int32, "cnt")
-    _require(inv, torch.int32, "inv")
+def _pairs(cnt: torch.Tensor, inv: torch.Tensor) -> bool:
+    """Whether ``(cnt, inv)`` are the column views of one ``[D, 2]`` table
+    (:func:`join_table_build`'s) rather than two contiguous tables."""
+    for t, what in ((cnt, "cnt"), (inv, "inv")):
+        if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
+            raise ValueError(f"{what}: expected a CUDA tensor")
+        if t.dtype != torch.int32:
+            raise TypeError(f"{what}: expected torch.int32, got {t.dtype}")
+        if t.dim() != 1:
+            raise ValueError(f"{what}: expected a 1-D tensor")
     if cnt.shape != inv.shape:
         raise ValueError("cnt and inv differ in length")
+    if cnt.is_contiguous() and inv.is_contiguous():
+        return False
+    if (cnt.stride(0) == 2 and inv.stride(0) == 2
+            and inv.data_ptr() == cnt.data_ptr() + 4
+            and cnt.data_ptr() % 8 == 0):
+        return True
+    raise ValueError("cnt and inv: expected two contiguous tables or the "
+                     "column views of one [D, 2] table")
+
+
+def _probe(pk, cnt, inv, bias: int):
+    _require(pk, torch.int32, "pk")
+    pairs = _pairs(cnt, inv)
     dev = _same_device(pk, cnt, inv)
     D = _size(cnt.shape[0], "domain_pad")
     n = pk.shape[0]
@@ -196,5 +250,22 @@ def join_table_probe(pk: torch.Tensor, cnt: torch.Tensor, inv: torch.Tensor):
     with device_guard(dev):
         _launch("join_table_probe", _lib().repro_join_table_probe,
                 pk.data_ptr(), n, cnt.data_ptr(), inv.data_ptr(), D,
-                cnt_p.data_ptr(), inv_p.data_ptr(), stream_handle(dev))
+                int(pairs), bias, cnt_p.data_ptr(), inv_p.data_ptr(),
+                stream_handle(dev))
     return cnt_p, inv_p
+
+
+def join_table_probe(pk: torch.Tensor, cnt: torch.Tensor, inv: torch.Tensor):
+    """Per probe row ``(cnt[c], inv[c])`` (int32); codes outside
+    ``[0, len(cnt))`` give 0.  ``cnt``/``inv``: :func:`join_table_build`'s
+    views (one 8-byte gather a probe) or two contiguous tables."""
+    return _probe(pk, cnt, inv, 0)
+
+
+def join_table_probe_rows(pk: torch.Tensor, cnt: torch.Tensor,
+                          inv: torch.Tensor):
+    """Per probe row ``(cnt[c], inv[c] - 1)``: the probe count and the
+    build row (−1 on a miss or a code outside ``[0, len(cnt))``), in the
+    probe side's own row order, by the same kernel as
+    :func:`join_table_probe`."""
+    return _probe(pk, cnt, inv, -1)

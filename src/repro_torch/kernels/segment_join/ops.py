@@ -9,12 +9,12 @@ the TPU kernels stopped at 4096 segments because of their one-hot
 such limit.  Float64 stays float64 (the TPU path's downcast to float32 at
 ``ops.py:48-49`` of the reference is not carried over).
 
-:func:`radix_hash_probe` is the full radix-join probe: both sides are
-radix-ordered by the top bits of their int32 codes (one
-:func:`radix_partition` each), the table is built and probed in radix order,
-and the per-probe results are gathered back to original row order.  The
-join cores in ``core/fused.py`` consume it through ``tensor_engine``'s
-dispatch.
+:func:`radix_hash_probe` is the full radix-join probe: the build side is
+radix-ordered by the top bits of its int32 codes (:func:`radix_partition`)
+and the table built in that order; the probe side is probed in its own row
+order (:func:`join_table_probe_rows`, one launch), since the probe's
+outputs do not depend on the order the probes run in.  The join cores in
+``core/fused.py`` consume it through ``tensor_engine``'s dispatch.
 """
 from __future__ import annotations
 
@@ -25,7 +25,7 @@ from . import ref as _ref
 
 __all__ = ["segment_sum", "join_aggregate_kernel", "radix_rank",
            "radix_partition", "radix_hash_probe", "join_table_build",
-           "join_table_probe", "probe_block_size"]
+           "join_table_probe", "join_table_probe_rows", "probe_block_size"]
 
 #: the largest bucket count :func:`radix_hash_probe` lets its radix pass use
 #: (a 128 KB per-tile histogram in shared memory)
@@ -37,16 +37,16 @@ def _cuda(t: torch.Tensor) -> bool:
 
 
 def segment_sum(seg_ids: torch.Tensor, values: torch.Tensor,
-                num_segments: int, ids_sorted: bool = False) -> torch.Tensor:
+                num_segments: int) -> torch.Tensor:
     """``sums[s] = Σ values[i]`` over ``seg_ids[i] == s``, in float64, each
-    segment summed in ascending row order (the reference's bits).
-    ``ids_sorted``: the caller's word that each segment's rows are
-    contiguous; the card then skips the grouping pass (and gives wrong
-    sums if the word is wrong).  The plain version does not need it."""
+    segment summed in ascending row order (the reference's bits).  The
+    card picks its route from the data (:func:`.kernel.segment_sum`): an
+    exact sum in any order, or the chain over ids that never decrease, or
+    over a stably grouped copy."""
     seg = seg_ids.to(torch.int32).contiguous()
     vals = values.to(torch.float64).contiguous()
     if _cuda(seg):
-        return _k.segment_sum(seg, vals, num_segments, ids_sorted)
+        return _k.segment_sum(seg, vals, num_segments)
     return _ref.segment_sum_ref(seg, vals, num_segments)
 
 
@@ -87,6 +87,16 @@ def join_table_probe(pk: torch.Tensor, cnt: torch.Tensor, inv: torch.Tensor):
     if _cuda(pk):
         return _k.join_table_probe(pk, cnt, inv)
     return _ref.join_table_probe_ref(pk, cnt, inv)
+
+
+def join_table_probe_rows(pk: torch.Tensor, cnt: torch.Tensor,
+                          inv: torch.Tensor):
+    """``(cnt[c], inv[c] - 1)`` per probe row in its own order: the probe
+    count and the build row, −1 on a miss or outside the table."""
+    pk = pk.to(torch.int32).contiguous()
+    if _cuda(pk):
+        return _k.join_table_probe_rows(pk, cnt, inv)
+    return _ref.join_table_probe_rows_ref(pk, cnt, inv)
 
 
 def radix_partition(bucket_ids: torch.Tensor, num_buckets: int):
@@ -150,19 +160,13 @@ def radix_hash_probe(bk: torch.Tensor, pk: torch.Tensor, domain: int,
     dpad = nblocks * dblk
     shift = dblk.bit_length() - 1          # log2(dblk), dblk a power of two
     bk = bk.to(torch.int32).contiguous()
-    pk = pk.to(torch.int32).contiguous()
-    # 1. radix-order both sides by domain block (top code bits)
+    # 1. radix-order the build side by domain block (top code bits) and
+    # build the table in that order
     bdest, _ = radix_partition(bk >> shift, nblocks)
     bk_ord, brow = _order(bk, bdest)
-    pdest, _ = radix_partition(pk >> shift, nblocks)
-    pk_ord, _ = _order(pk, pdest)
-    # 2. build the table in radix order, 3. probe in radix order and gather
-    # the per-probe results back to original row order
     cnt_t, inv_t = join_table_build(bk_ord, brow, dpad)
-    cnt_po, inv_po = join_table_probe(pk_ord, cnt_t, inv_t)
-    back = pdest.long()
-    cnt_p = cnt_po[back]
-    build_row = inv_po[back] - 1
+    # 2. probe in the probe side's own row order: count and build row
+    cnt_p, build_row = join_table_probe_rows(pk, cnt_t, inv_t)
     has_dup = (cnt_t[:domain].max() > 1 if domain
                else torch.zeros((), dtype=torch.bool, device=dev))
     return cnt_p, build_row, has_dup

@@ -12,8 +12,9 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["segment_sum_ref", "radix_rank_ref", "join_table_build_ref",
-           "join_table_probe_ref", "radix_partition_ref",
+__all__ = ["segment_sum_ref", "sum_is_order_free_ref", "radix_rank_ref",
+           "join_table_build_ref", "join_table_probe_ref",
+           "join_table_probe_rows_ref", "radix_partition_ref",
            "radix_hash_probe_ref"]
 
 
@@ -29,6 +30,38 @@ def segment_sum_ref(seg_ids: torch.Tensor, values: torch.Tensor,
     keep = _in_range(seg_ids, num_segments)
     seg = torch.where(keep, seg_ids, 0).long()
     return out.index_add_(0, seg, torch.where(keep, values, 0))
+
+
+def _lowest_bit(v: torch.Tensor) -> torch.Tensor:
+    """Index of the lowest set bit of each positive int64."""
+    return torch.frexp((v & -v).to(torch.float64))[1] - 1
+
+
+def sum_is_order_free_ref(values: torch.Tensor) -> bool:
+    """Whether every sum of these float64 values, over any subset in any
+    order, is exact: no value is NaN or infinite, and with ``e`` the least
+    exponent of a lowest set bit of a nonzero value, ``top`` the largest
+    ``floor(log2 |x|)`` and ``n`` the number of values,
+    ``2**(top + 1) * 2**ceil(log2 n) <= min(2**(53 + e), 2**1024)``.
+    Every partial sum is then a multiple of ``2**e`` below ``2**(53 + e)``
+    and ``2**1024`` in magnitude, a finite float64, so each add is exact
+    and the segment sum has the row-order bits in any order.  The card's
+    segment sum decides its route by the same test, in the same exponent
+    arithmetic."""
+    v = values.to(torch.float64).reshape(-1)
+    if not bool(torch.isfinite(v).all()):
+        return False
+    nz = v[v != 0]
+    if nz.numel() == 0:
+        return True
+    # nz = mant * 2**exp with |mant| in [0.5, 1); mant * 2**53 is the
+    # 53-bit significand, exactly
+    mant, exp = torch.frexp(nz)
+    sig = (mant.abs() * 2.0**53).to(torch.int64)
+    low = int((exp - 53 + _lowest_bit(sig)).min())
+    top = int(exp.max()) - 1
+    log2n = (v.numel() - 1).bit_length()
+    return log2n + top + 1 <= min(53 + low, 1024)
 
 
 def radix_rank_ref(bucket_ids: torch.Tensor, num_buckets: int):
@@ -73,6 +106,15 @@ def join_table_probe_ref(pk: torch.Tensor, cnt: torch.Tensor,
     zero = torch.zeros((), dtype=torch.int32, device=pk.device)
     return (torch.where(live, cnt[code], zero),
             torch.where(live, inv[code], zero))
+
+
+def join_table_probe_rows_ref(pk: torch.Tensor, cnt: torch.Tensor,
+                              inv: torch.Tensor):
+    """Per probe row, in its own order, ``(cnt[c], inv[c] - 1)``: the probe
+    count and the build row, −1 on a miss; codes outside the table give
+    ``(0, -1)``."""
+    cnt_p, inv_p = join_table_probe_ref(pk, cnt, inv)
+    return cnt_p, inv_p - 1
 
 
 def radix_partition_ref(bucket_ids: torch.Tensor, num_buckets: int):

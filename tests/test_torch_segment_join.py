@@ -225,6 +225,69 @@ def test_radix_hash_probe_matches_reference(nb, npr, domain, dup, dead):
         assert bool(has_dup) == bool(dup_j)
 
 
+def _probe_order(pk, domain, dpad, probe, rng):
+    """The probe codes of a case in one of the orders and placements the
+    radix probe must not depend on."""
+    if probe == "in_order":        # as lineitem's l_orderkey comes
+        return np.sort(pk)
+    if probe == "shuffled":
+        return rng.permutation(np.sort(pk))
+    if probe == "dead_slot":       # every probe at the dead slot
+        return np.full_like(pk, domain)
+    if probe == "past_domain":     # codes in (domain, dpad): empty slots
+        out = pk.copy()
+        out[rng.random(len(pk)) < 0.3] = rng.integers(domain + 1, dpad)
+        return out
+    raise ValueError(probe)
+
+
+@pytest.mark.parametrize("probe", ["in_order", "shuffled", "dead_slot",
+                                   "past_domain"])
+@pytest.mark.parametrize("nb,npr,domain,dup", [
+    (256, 1024, 500, False),
+    (64, 128, 16, True),           # duplicate build keys
+    (300, 700, 40000, False),
+])
+def test_radix_hash_probe_matches_reference_in_any_probe_order(
+        probe, nb, npr, domain, dup):
+    """The port probes in the probe side's own row order (one launch on the
+    card) where the reference radix-orders it first: the outputs, has_dup
+    included, are the JAX radix_hash_probe's (its Pallas kernels in
+    interpret mode) with the probes in order, shuffled, all at the dead
+    slot, and past the domain inside the padded table."""
+    bk, pk = _probe_case(nb, npr, domain, nb + npr + domain, dup, True)
+    rng = np.random.default_rng(npr)
+    dpad = -(-(domain + 1) // 512) * 512
+    pk = _probe_order(pk, domain, dpad, probe, rng).astype(np.int32)
+    cnt, row, has_dup = ops.radix_hash_probe(_t(bk), _t(pk), domain)
+    cnt_j, row_j, dup_j = jops.radix_hash_probe(
+        jnp.asarray(bk), jnp.asarray(pk), domain, interpret=True)
+    _eq(cnt, cnt_j)
+    _eq(row, row_j)
+    assert bool(has_dup) == bool(dup_j)
+
+
+def test_join_table_probe_rows_is_the_probe_less_one():
+    """The row-order probe entry: the count and ``inv - 1``, codes outside
+    the table giving (0, -1), against the Pallas probe."""
+    rng = np.random.default_rng(17)
+    n, dpad, tblk, dblk = 1024, 1024, 256, 512
+    bk = rng.integers(0, dpad // 4, n).astype(np.int32)
+    brow = rng.permutation(n).astype(np.int32)
+    pk = rng.integers(-16, dpad + 64, 1500).astype(np.int32)
+    cnt, inv = ops.join_table_build(_t(bk), _t(brow), dpad)
+    cp, row = ops.join_table_probe_rows(_t(pk), cnt, inv)
+    cnt_j, inv_j = jk.join_table_build_pallas(
+        jnp.asarray(bk), jnp.asarray(brow), dpad, tblk=tblk, dblk=dblk,
+        interpret=True)
+    pk_pad = np.concatenate([pk, np.full(36, -1, np.int32)])  # whole tiles
+    cp_j, ip_j = jk.join_table_probe_pallas(
+        jnp.asarray(pk_pad), cnt_j, inv_j, tblk=tblk, dblk=dblk,
+        interpret=True)
+    _eq(cp, np.asarray(cp_j)[:1500])
+    _eq(row, np.asarray(ip_j)[:1500] - 1)
+
+
 @pytest.mark.parametrize("nb,npr", [(0, 256), (256, 0), (0, 0)])
 def test_radix_hash_probe_empty_sides(nb, npr):
     rng = np.random.default_rng(7)
@@ -274,3 +337,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         kernel.join_table_build(seg, seg, 8)
     with pytest.raises(ValueError, match="CUDA"):
         kernel.join_table_probe(seg, seg, seg)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernel.join_table_probe_rows(seg, seg, seg)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernel.segment_sum_route(seg, torch.zeros(4, dtype=torch.float64), 2)

@@ -64,26 +64,29 @@ def test_reference_plain_version_and_row_order_agree_bit_for_bit(order, n,
 
 @pytest.mark.parametrize("ids_sorted", [False, True])
 def test_ops_segment_sum_gives_the_row_order_bits(ids_sorted):
-    """The op the engine calls, on the CPU, with either word from the
-    caller: the row-order bits."""
+    """The op the engine calls, on the CPU, with the ids sorted or in a
+    shuffled row order: the row-order bits."""
     ids, vals = _data(20_000, 300, "sorted", 3)
-    got = ops.segment_sum(torch.from_numpy(ids), torch.from_numpy(vals), 300,
-                          ids_sorted=ids_sorted).numpy()
+    if not ids_sorted:
+        perm = np.random.default_rng(4).permutation(ids.size)
+        ids, vals = ids[perm], vals[perm]
+    got = ops.segment_sum(torch.from_numpy(ids), torch.from_numpy(vals),
+                          300).numpy()
     np.testing.assert_array_equal(got.view(np.int64),
                                   _row_order(ids, vals, 300).view(np.int64))
 
 
 def test_group_by_says_its_ids_are_sorted_and_join_aggregate_does_not(
         monkeypatch):
-    """The GROUP BY hands the kernel non-decreasing ids with
-    ``ids_sorted=True``; the join aggregate's ids are unsorted and go
-    without it."""
+    """The GROUP BY hands the kernel ids that never decrease (the card
+    then chains their runs as they come, where the sum is not exact in
+    every order); the join aggregate's ids are unsorted."""
     calls = []
     real = tensor_engine.segment_sum_dispatch
 
-    def spy(values, seg_ids, num_segments, ids_sorted=False):
-        calls.append((ids_sorted, seg_ids.clone()))
-        return real(values, seg_ids, num_segments, ids_sorted)
+    def spy(values, seg_ids, num_segments):
+        calls.append(seg_ids.clone())
+        return real(values, seg_ids, num_segments)
 
     monkeypatch.setattr(tensor_engine, "segment_sum_dispatch", spy)
     rng = np.random.default_rng(5)
@@ -94,11 +97,11 @@ def test_group_by_says_its_ids_are_sorted_and_join_aggregate_does_not(
                         "c": rng.integers(0, 9, n).astype(np.int64)})
     res = sess.table("t").group_by("g", {"w": "sum", "c": "count"}).collect()
     assert res.relation is not None and len(calls) == 2
-    for ids_sorted, seg in calls:
-        assert ids_sorted
+    for seg in calls:
         assert bool((seg[1:] >= seg[:-1]).all())
     calls.clear()
     keys = torch.from_numpy(rng.integers(0, 50, 400).astype(np.int32))
     vals = torch.from_numpy(rng.normal(size=400))
     tensor_engine._join_aggregate(keys, vals, keys.flip(0), vals, 50)
-    assert [f for f, _ in calls] == [False] * 4
+    assert len(calls) == 4
+    assert not any(bool((seg[1:] >= seg[:-1]).all()) for seg in calls)
