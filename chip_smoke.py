@@ -11,8 +11,9 @@ the routing's slots), each at the decode and prefill shapes;
 ``join-build`` (the table build at Q-a's build shape, then Q-a and Q-b
 warm and traced); ``join-probe`` (``radix_hash_probe`` at Q-a's shape with
 the probe codes in order and shuffled, then Q-a and Q-b); ``segment-sum``
-(the segment sum's cases at Q-c's shape, then Q-c and Q-e); ``lm`` (phase
-6).
+(the segment sum's cases at Q-c's shape, then Q-c and Q-e); ``sharded``
+(phase 5b, after the single-device Q-a; with ``--profile``, traces of
+both); ``lm`` (phase 6).
 
 Phases (any mismatch or exception ends the run with a non-zero exit code):
 
@@ -57,6 +58,21 @@ Phases (any mismatch or exception ends the run with a non-zero exit code):
    budget;
 5. the four queries at a small scale on the card and on the CPU
    (``device="cpu"``, the plain versions), which must agree exactly;
+5b. the sharded fused fragment over the card's eight logical lanes, on
+   the SF1 tables still built: (a) fig15's fragment
+   (``benchmarks/figures.py``: 1,000,000 unique sparse build keys, probe
+   keys drawn from them, ``w < 500``, ``sum(b_v)``) through ``run_fused``
+   at 1, 2, 4 and 8 shards, 2 cold and 7 warm runs each, every scalar equal
+   to the numpy oracle, warm runs with 1 host sync, 0 H2D bytes when
+   sharded, and all 8 lanes dispatched; (b) Q-a through
+   ``Session(policy="auto", max_shards=8)``, whose selector must pick the
+   sharded program (a forced ``tensor`` policy decides one device, as in
+   the reference), held to phase 3's oracle with 1 warm sync and 0 warm
+   H2D bytes, its cold time beside the host partition pass alone; (c) a
+   governed ``QueryServer(max_shards=8)`` closed loop over Q-a with no
+   failed or shed query, no over-budget event and every lane dispatched.
+   The sharded program is plain PyTorch (the reference's per-shard body
+   reaches no Pallas kernel), so it adds no kernel row;
 6. LM serving on the card, counters from 0: Phi-3.5-MoE
    (``phi3.5-moe-42b-a6.6b``) at full width and 24 of its 32 layers in
    bfloat16, random weights made on the card from ``--seed``; a prefill of
@@ -308,8 +324,9 @@ def device_events(prof) -> list:
 
 
 #: traces taken at most for one number: the card's profiler now and then
-#: returns a session without its device events, or with part of them
-TRACE_TRIES = 5
+#: returns a session without its device events, or with part of them (five
+#: traces of 200 calls have held 113, 0, 199, 200 and 198 events)
+TRACE_TRIES = 8
 
 
 def device_ms_per_call(fn, kernel_name, calls: int = DECODE_CALLS):
@@ -1646,6 +1663,231 @@ def small_agreement(seed: int) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Phase 5b: the sharded fragment over the card's eight logical lanes
+# ---------------------------------------------------------------------------
+
+FIG15_ROWS = 1_000_000       # benchmarks/figures.py fig15's full size
+SHARDS = (1, 2, 4, 8)
+SHARD_COLD, SHARD_WARM = 2, 7
+LANES = 8
+
+
+def fig15_fragment(seed: int):
+    """fig15's fragment (``benchmarks/figures.py``): unique sparse build
+    keys ``perm * 1_000_003 + 17``, probe keys drawn from them, filter
+    ``w < 500``, ``sum(b_v)``; with its numpy oracle."""
+    import numpy as np
+
+    from repro_torch.core import FusedSpec, Relation, col
+
+    rng = np.random.default_rng(seed)
+    n = FIG15_ROWS
+    bk = rng.permutation(n).astype(np.int64) * 1_000_003 + 17
+    build = Relation({"k": bk,
+                      "v": rng.integers(0, 1 << 30, n).astype(np.int64)})
+    probe = Relation({"k": bk[rng.integers(0, n, n)],
+                      "w": rng.integers(0, 1000, n).astype(np.int64)})
+    spec = FusedSpec(join_key="k", filter_fn=col("w") < 500, sort_keys=(),
+                     agg=("b_v", "sum"))
+    order = np.argsort(bk)
+    hit = order[np.searchsorted(bk[order], probe["k"])]
+    oracle = float(build["v"][hit[probe["w"] < 500]].sum())
+    return spec, build, probe, oracle
+
+
+def check_lanes(label: str, lanes) -> None:
+    """All ``LANES`` broker lanes exist and each has dispatched."""
+    if len(lanes) < LANES:
+        fail(f"{label}: {len(lanes)} broker lanes, expected {LANES}")
+    idle = [i for i, lane in enumerate(lanes) if lane["dispatches"] <= 0]
+    if idle:
+        fail(f"{label}: lanes {idle} never dispatched")
+
+
+def sharded_fig15(seed: int, profile: bool = False) -> dict:
+    """(a) fig15's fragment through ``run_fused(device="cuda")`` at shards
+    1, 2, 4 and 8, each with its own broker: ``SHARD_COLD`` cold runs, then
+    ``SHARD_WARM`` warm ones, every scalar equal to the oracle; warm runs
+    take 1 host sync on ``shards`` lanes and, sharded, upload nothing.
+    With ``profile``, one more warm run at 1 and at 8 shards is traced."""
+    import types
+
+    from repro_torch.core import ResourceBroker, run_fused
+
+    spec, build, probe, oracle = fig15_fragment(seed)
+    out = {}
+    for shards in SHARDS:
+        broker = ResourceBroker()
+        req = None if shards == 1 else shards
+        cold, warm = [], []
+        for i in range(SHARD_COLD + SHARD_WARM):
+            scalar, m = run_fused(spec, build, probe, broker=broker,
+                                  shards=req, device="cuda")
+            if scalar != oracle:
+                fail(f"fig15 at {shards} shards: {scalar!r} != oracle "
+                     f"{oracle}")
+            if i < SHARD_COLD:
+                cold.append(m.wall_s)
+                continue
+            warm.append(m.wall_s)
+            if (m.devices, m.host_syncs) != (shards, 1):
+                fail(f"fig15 at {shards} shards: warm run on {m.devices} "
+                     f"lanes with {m.host_syncs} host syncs")
+            if shards > 1 and m.h2d_bytes:
+                fail(f"fig15 at {shards} shards: a warm run uploaded "
+                     f"{m.h2d_bytes} bytes")
+        if shards == LANES:
+            check_lanes("fig15", broker.stats().lanes)
+        if profile and shards in (1, LANES):
+            run = types.SimpleNamespace(collect=lambda: run_fused(
+                spec, build, probe, broker=broker, shards=req,
+                device="cuda"))
+            print_profile(f"fig15 at {shards} shard(s)", *traced_run(run))
+        out[shards] = {"cold_s": cold, "warm_p50_s": statistics.median(warm),
+                       "warm_s": warm}
+    for shards in SHARDS:
+        out[shards]["single_over_sharded"] = (out[1]["warm_p50_s"]
+                                              / out[shards]["warm_p50_s"])
+    return out
+
+
+def partition_pass_s(orders, lineitem) -> float:
+    """Seconds of the host partition pass over the columns Q-a reads, at
+    ``LANES`` partitions: the build side sorted within its partitions, the
+    probe side in row order (the cold sharded run pays this once)."""
+    from repro_torch.core import Relation
+    from repro_torch.core import partition as part
+
+    t0 = time.perf_counter()
+    part._build_partitions(Relation({k: orders[k] for k in
+                                     ("orderkey", "o_orderdate")}),
+                           "orderkey", LANES, True)
+    part._build_partitions(Relation({k: lineitem[k] for k in
+                                     ("orderkey", "l_shipdate",
+                                      "l_extendedprice")}),
+                           "orderkey", LANES, False)
+    return time.perf_counter() - t0
+
+
+def check_sharded_qa(res, want) -> None:
+    d, m = res.decisions[-1], res.metrics[-1]
+    if (d.path, d.shards, m.devices) != ("tensor", LANES, LANES):
+        fail(f"sharded Q-a: path {d.path}, {d.shards} shards, {m.devices} "
+             f"lanes ({d.reason})")
+    check_answer("Q-a", res, want)
+
+
+def sharded_qa(orders, lineitem, want, profile: bool = False) -> dict:
+    """(b) Q-a at SF1 through ``Session(policy="auto", max_shards=8)``: the
+    selector must price the sharded program lower (a forced ``tensor``
+    policy decides one device, as in the reference), every answer equals
+    the oracle, and warm runs take 1 host sync and upload nothing.  With
+    ``profile``, one more warm run is traced."""
+    from repro_torch.core import Session
+
+    sess = Session(work_mem=1 << 20, policy="auto", max_shards=LANES,
+                   device="cuda")
+    sess.register("orders", orders)
+    sess.register("lineitem", lineitem)
+    q = queries(sess)["Q-a"]
+    t0 = time.perf_counter()
+    res = q.collect()
+    cold = time.perf_counter() - t0
+    check_sharded_qa(res, want)
+    reason = res.decisions[-1].reason
+    results, warm = warm_runs("Q-a", q, want)
+    for r in results:
+        check_sharded_qa(r, want)
+        if (r.total_host_syncs, r.total_h2d_bytes) != (1, 0):
+            fail(f"sharded Q-a: warm host_syncs {r.total_host_syncs}, h2d "
+                 f"{r.total_h2d_bytes} B")
+    if profile:
+        print_profile("sharded Q-a", *traced_run(q))
+    return {"cold_s": cold, "cold_h2d_bytes": res.total_h2d_bytes,
+            "warm_p50_s": statistics.median(warm), "warm_s": warm,
+            "decision": reason}
+
+
+def sharded_serving(orders, lineitem, want) -> dict:
+    """(c) a governed ``QueryServer(max_shards=8)`` closed loop over Q-a:
+    no failed or shed query, no over-budget event, every answer equal to
+    the oracle and every lane dispatched."""
+    from repro_torch.core import QueryServer
+
+    server = QueryServer({"orders": orders, "lineitem": lineitem},
+                         total_mem=SERVE_TOTAL_MEM, work_mem=SERVE_WORK_MEM,
+                         max_shards=LANES, device="cuda")
+    if len(server.broker.lanes) != LANES:
+        fail(f"sharded server: {len(server.broker.lanes)} lanes at build")
+    rep = server.serve([queries(server.session)["Q-a"]], concurrency=8,
+                       queries_per_worker=4, warmup=1)
+    check_served("sharded closed loop", rep, ["Q-a"], want)
+    check_lanes("sharded closed loop", rep.broker.lanes)
+    if server.governor.held_bytes != 0:
+        fail(f"sharded closed loop: {server.governor.held_bytes} bytes "
+             f"still held")
+    return {"counts": rep.counts, "p50_s": rep.latency.p50,
+            "p99_s": rep.latency.p99, "qps": rep.qps,
+            "lane_dispatches": [lane["dispatches"]
+                                for lane in rep.broker.lanes]}
+
+
+def sharded_phase(orders, lineitem, want, seed: int,
+                  profile: bool = False) -> dict:
+    """Phase 5b: (a), (b) and (c), with the device memory they peak at;
+    with ``profile``, a trace of one warm sharded Q-a."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = {"fig15": sharded_fig15(seed, profile)}
+    for shards in SHARDS:
+        r = out["fig15"][shards]
+        print(f"fig15 fragment, {FIG15_ROWS} rows, {shards} shard(s): warm "
+              f"p50 {r['warm_p50_s'] * 1e3:.3f} ms over {SHARD_WARM} "
+              f"(single-device p50 / this {r['single_over_sharded']:.3f}), "
+              f"cold {[round(c, 4) for c in r['cold_s']]} s", flush=True)
+    out["partition_pass_s"] = partition_pass_s(orders, lineitem)
+    out["Q-a"] = sharded_qa(orders, lineitem, want["Q-a"], profile)
+    r = out["Q-a"]
+    print(f"sharded Q-a (SF1, {LANES} lanes): cold {r['cold_s']:.4f} s "
+          f"({r['cold_h2d_bytes']} B uploaded; the host partition pass "
+          f"alone {out['partition_pass_s']:.4f} s), warm p50 "
+          f"{r['warm_p50_s'] * 1e3:.3f} ms over {WARM_RUNS}; "
+          f"{r['decision']}", flush=True)
+    out["serving"] = sharded_serving(orders, lineitem, want)
+    r = out["serving"]
+    print(f"sharded closed loop (Q-a, 8 workers x 4): {r['counts']}, p50 "
+          f"{r['p50_s']:.4f} s, p99 {r['p99_s']:.4f} s, {r['qps']:.1f} q/s, "
+          f"lane dispatches {r['lane_dispatches']}", flush=True)
+    out["peak_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    out["allocated_at_start_bytes"] = base
+    print(f"sharded phase peak device memory allocated: "
+          f"{out['peak_allocated_bytes']} B ({base} B at its start)",
+          flush=True)
+    return out
+
+
+def sharded_calls(dev, seed: int, profile: bool = False) -> dict:
+    """``--only sharded``: phase 5b on fresh SF1 tables, after phase 3's
+    single-device Q-a (warm p50, and with ``profile`` a trace) for
+    comparison."""
+    orders, lineitem = tpch(1.0, seed)
+    want = oracle(orders, lineitem)
+    q = queries(tensor_session(orders, lineitem))["Q-a"]
+    check_answer("Q-a", q.collect(), want["Q-a"])
+    _, warm = warm_runs("Q-a", q, want["Q-a"])
+    single = statistics.median(warm)
+    print(f"single-device Q-a: warm p50 {single * 1e3:.3f} ms", flush=True)
+    if profile:
+        print_profile("single-device Q-a", *traced_run(q))
+    return {"single_device_qa_warm_p50_s": single,
+            **sharded_phase(orders, lineitem, want, seed, profile)}
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: LM serving (Phi-3.5-MoE at full width) on the card
 # ---------------------------------------------------------------------------
 
@@ -1818,7 +2060,7 @@ def lm_agreement(seed: int) -> dict:
 #: the ``--only`` phases besides ``lm`` (phase 6, run by ``lm_serving``)
 ONLY = {"moe-dispatch": dispatch_calls, "moe-layer": moe_layer_calls,
         "join-build": join_build_calls, "join-probe": join_probe_calls,
-        "segment-sum": segment_sum_calls}
+        "segment-sum": segment_sum_calls, "sharded": sharded_calls}
 
 
 def main() -> None:
@@ -1839,8 +2081,9 @@ def main() -> None:
                          "radix_hash_probe at Q-a's shape (probe codes in "
                          "order and shuffled) and then Q-a and Q-b, "
                          "segment-sum the segment sum's cases at Q-c's "
-                         "shape and then Q-c and Q-e, lm is phase 6 (with "
-                         "--profile, its trace)")
+                         "shape and then Q-c and Q-e, sharded is phase 5b "
+                         "after the single-device Q-a, lm is phase 6 (with "
+                         "--profile, their traces)")
     ap.add_argument("--tree", type=Path,
                     help="with --only: drive the repro_torch package of "
                          "this checkout (e.g. a parent commit unpacked with "
@@ -1882,7 +2125,7 @@ def main() -> None:
             "flash_attention_sm90", "moe_dispatch")
     if args.only in ("moe-dispatch", "moe-layer"):
         libs = ("moe_dispatch",)
-    elif args.only in ("join-build", "join-probe", "segment-sum"):
+    elif args.only in ("join-build", "join-probe", "segment-sum", "sharded"):
         libs = ("segment_join",)
     for lib in libs:  # the first call builds every source, in parallel
         D.kernel_library(lib)
@@ -1895,6 +2138,8 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     if args.only == "lm":
         res, _ = lm_serving(args.seed, args.profile)
+    elif args.only == "sharded":
+        res = sharded_calls(dev, args.seed, args.profile)
     elif args.only is not None:
         res = ONLY[args.only](dev, args.seed)
     if args.only is not None:
@@ -1961,6 +2206,15 @@ def main() -> None:
     small_agreement(args.seed)
     print("small-scale card/CPU agreement: ok", flush=True)
 
+    # phase 5b: the sharded fragment over eight logical lanes (the SF1
+    # tables still built)
+    t0 = time.perf_counter()
+    sharded = sharded_phase(orders, lineitem, want, args.seed, args.profile)
+    print(f"sharded phase: {time.perf_counter() - t0:.1f} s (single-device "
+          f"Q-a warm p50 {report['Q-a']['warm_p50_s'] * 1e3:.3f} ms, "
+          f"sharded {sharded['Q-a']['warm_p50_s'] * 1e3:.3f} ms)",
+          flush=True)
+
     # phase 6: LM serving, on a card emptied of the relational phases
     del server
     gc.collect()
@@ -1989,7 +2243,8 @@ def main() -> None:
               for r in rows}
     print(json.dumps({"queries": {k: report[k] for k in QUERIES},
                       "peak_allocated_bytes": report["peak_allocated_bytes"],
-                      "serving": serving, "lm": lm, "kernel_rows": extras}))
+                      "serving": serving, "sharded": sharded, "lm": lm,
+                      "kernel_rows": extras}))
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {

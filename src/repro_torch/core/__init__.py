@@ -31,7 +31,10 @@ Layered, front to back:
   * **Serving** — :class:`QueryServer` runs closed-loop (``serve``) and
     open-loop SLO (``serve_open``, :class:`ArrivalProcess`,
     :class:`TenantClass`) query streams over one shared session on one
-    device.  The sharded fragment path is not ported yet.
+    device; ``max_shards > 1`` runs eligible aggregate fragments
+    partition-parallel over logical lanes of that device
+    (:mod:`~repro_torch.core.partition`, :func:`~repro_torch.core.fused.
+    sharded_supported`).
 
 See ``docs/ARCHITECTURE.md`` for the full layer map, ``docs/query-api.md``
 for the front-end (including the ``explain()`` stage-chain notation), and

@@ -257,9 +257,9 @@ class Executor:
         self.retry = retry if retry is not None else RetryPolicy()
         # Lane fan-out ceiling for fused fragments: 1 (default) keeps every
         # dispatch on the single-device path; N > 1 lets choose_fragment
-        # price the partition-parallel sharded program (capped at the mesh's
-        # actual device count at decision time) and run_fused fan out over N
-        # broker lanes when it wins.
+        # price the partition-parallel sharded program (capped at the
+        # device's logical lanes at decision time) and run_fused fan out
+        # over N broker lanes when it wins.
         self.max_shards = int(max_shards)
         # Execution-time guards (mid-query adaptive re-planning): when on,
         # every costed LINEAR join/sort runs under an ExecutionGuard that

@@ -25,9 +25,15 @@ with no host round trip between them) that:
 Host-side planning (capacity estimation from a key sample) reads only the
 numpy inputs and costs no device traffic.  The dense join core runs the
 hand-written radix-join kernels (``kernels/segment_join``) on a CUDA device
-at every domain size.  This slice runs on one device: a request for shards
-degrades to the single-device program, as the reference does with one
-device.
+at every domain size.
+
+``run_fused(shards=N)`` runs an eligible aggregate fragment
+partition-parallel (:func:`sharded_supported`): both sides are
+co-partitioned by a hash of the join key on the host
+(:mod:`repro_torch.core.partition`), and one batched program joins every
+partition's pre-sorted build run at once over ``(N, bucket)`` tensors on the
+one device, where the reference runs one partition per mesh device under
+``shard_map``; the broker's gang lease holds one logical lane per partition.
 """
 from __future__ import annotations
 
@@ -39,15 +45,18 @@ import numpy as np
 import torch
 
 from ..device import resolve_device, to_host
+from ..distributed.sharding import available_partitions
 from .codec_device import decode_device, dict_bucket, take
 from .metrics import OpMetrics, SpillAccount, Timer
-from .relation import Relation
+from .partition import get_partitioned_columns, partition_bucket
+from .relation import Relation, column_token
 from .table_cache import get_device_layouts, key_stats
 from .tensor_engine import (_lex_perm, _order_key, capacity_bucket,
                             radix_hash_probe_dispatch)
 
 __all__ = ["FusedSpec", "PredicateError", "device_mask", "match_fragment",
-           "run_fused", "pipeline_cache_info", "pipeline_cache_clear"]
+           "run_fused", "sharded_supported", "pipeline_cache_info",
+           "pipeline_cache_clear"]
 
 _I64_MAX = np.iinfo(np.int64).max
 
@@ -448,6 +457,55 @@ def _join_sorted(bk, pk, n_build, n_probe, capacity):
     return build_idx, probe_idx, valid, total, has_dup
 
 
+def _join_sorted_run(sk, pk, n_probe, capacity):
+    """Join core over PRE-SORTED build runs, batched over partitions (the
+    sharded path).
+
+    ``sk`` is ``(P, B)``: each row one partition's build keys, sorted, with
+    sentinel padding at the tail (:mod:`repro_torch.core.partition`), so
+    alignment is a searchsorted probe over an already-ordered resident run
+    — **no per-query device sort at all**.  ``pk`` is ``(P, Q)`` and
+    ``n_probe`` the ``(P,)`` live probe rows of each partition.
+    ``build_idx``/``probe_idx`` are ``(P, capacity)`` positions within
+    their partition's row; ``total`` is each partition's match count.
+
+    Two steps differ from the reference's per-shard body, with the same
+    result: the running match ends come from ONE scan over all partitions
+    minus each partition's base, and expansion finds each slot's probe row
+    by a binary search of the slot over its partition's ends (the first row
+    whose end passes the slot) where the reference scatters each row at
+    its start and forward-fills with a running max.  Every valid slot gets
+    the same row; the rest are masked.  On the card a scan along dim 1 of
+    a few long rows is many times slower than either (torch's ``cummax``
+    took 3.1 and its ``cumsum`` 1.5 of 6.3 ms of device time of Q-a at SF1
+    over 8 partitions).
+    """
+    P, B = sk.shape
+    Q = pk.shape[1]
+    dev = sk.device
+    left = torch.searchsorted(sk, pk)
+    right = torch.searchsorted(sk, pk, right=True)
+    # padded probe rows contribute nothing; a real probe key equal to the
+    # int64 sentinel would false-match padded build rows, so it is
+    # excluded (the same key-domain contract as the single-device core)
+    live = torch.arange(Q, device=dev) < n_probe[:, None]
+    counts = torch.where(live & (pk != _I64_MAX), right - left, 0)
+    ends = torch.cumsum(counts.reshape(-1), 0).reshape(P, Q)
+    base = torch.cat([ends.new_zeros(1), ends[:-1, -1]])
+    ends = ends - base[:, None]
+    starts = ends - counts
+    total = ends[:, -1]
+    slot = torch.arange(capacity, dtype=torch.int64, device=dev)
+    probe_idx = torch.clamp(
+        torch.searchsorted(ends, slot.expand(P, capacity).contiguous(),
+                           right=True), max=Q - 1)
+    build_pos = (torch.gather(left, 1, probe_idx)
+                 + (slot - torch.gather(starts, 1, probe_idx)))
+    build_idx = torch.clamp(build_pos, 0, B - 1)
+    valid = slot < total[:, None]
+    return build_idx, probe_idx, valid, total
+
+
 def _join_dense(bk, pk, n_build, n_probe, capacity, domain: int, kmin: int):
     """Dense-domain join core: the key IS a coordinate axis.
 
@@ -615,6 +673,143 @@ def _build_program(spec: FusedSpec, key: str, capacity: int,
     return program
 
 
+# ---------------------------------------------------------------------------
+# Sharded program: the partition-parallel fragment over logical lanes
+# ---------------------------------------------------------------------------
+
+def sharded_supported(spec: FusedSpec, build: Relation,
+                      probe: Relation) -> bool:
+    """Host-side eligibility of a fragment for partition-parallel execution.
+
+    The sharded path merges per-partition results with device-side
+    combines (psum/pmin/pmax over the mesh axis), so only scalar
+    AGGREGATE roots qualify — a relation root would need a global merge
+    that re-serializes the partitions.  Bit-for-bit parity with the
+    single-device program is part of the contract, which admits exactly
+    the order-independent reductions: ``count`` always; ``min``/``max``
+    always (exact for floats too); ``sum`` only over integer columns —
+    integer addition is associative even under wraparound, while a float
+    psum of per-partition partials reassociates the single program's
+    reduction order.  Join keys must be integers (the partition hash and
+    the sentinel padding contract are int64).  A fragment's sort stage is
+    irrelevant under these aggregates and is skipped per shard.
+    """
+    if spec.agg is None:
+        return False
+    key = spec.join_key
+    for rel in (build, probe):
+        if not isinstance(rel, Relation) or key not in rel.names:
+            return False
+        if not np.issubdtype(rel[key].dtype, np.integer):
+            return False
+    col, fn = spec.agg
+    if fn == "count":
+        return True
+    # the _JoinView naming contract: build wins b_<x> collisions
+    if col.startswith("b_") and col[2:] in build.names and col[2:] != key:
+        dtype = build[col[2:]].dtype
+    elif col in probe.names:
+        dtype = probe[col].dtype
+    else:
+        return False
+    if fn in ("min", "max"):
+        return True
+    return fn == "sum" and bool(np.issubdtype(dtype, np.integer))
+
+
+_UNSIGNED = (torch.uint8, torch.uint16, torch.uint32, torch.uint64)
+
+
+def _partition_scalar(fn: str, c: torch.Tensor,
+                      valid: torch.Tensor) -> torch.Tensor:
+    """One reduction over every partition's rows that gives the bits of the
+    reference's per-partition aggregates combined by psum/pmin/pmax.
+
+    Integer sums run in int64, which is the reference's accumulator (its
+    ``sum`` of a narrower integer widens to int64, of an unsigned one to
+    uint64): addition modulo 2^64 is associative, so one sum equals the
+    sum of the partials, and an unsigned sum comes back as a uint64 view
+    of the same bits.  Integer min/max run on :func:`_order_key`'s signed
+    key of the same order (CUDA has no ``where`` or comparison for
+    uint16/32/64); floats and bool reduce as the single-device program
+    does."""
+    if fn == "sum":
+        wide = (c.view(torch.int64) if c.dtype == torch.uint64
+                else _order_key(c).to(torch.int64))
+        out = torch.where(valid, wide, 0).sum()
+        return out.view(torch.uint64) if c.dtype in _UNSIGNED else out
+    if c.dtype.is_floating_point or c.dtype == torch.bool:
+        fill = _fill_max(c.dtype) if fn == "min" else _fill_min(c.dtype)
+        masked = torch.where(valid, c, fill)
+        return masked.min() if fn == "min" else masked.max()
+    key = _order_key(c)
+    info = torch.iinfo(key.dtype)
+    if fn == "min":
+        out = torch.where(valid, key, info.max).min()
+    elif fn == "max":
+        out = torch.where(valid, key, info.min).max()
+    else:
+        raise ValueError(fn)
+    if c.dtype == torch.uint64:
+        out = (out ^ torch.iinfo(torch.int64).min).view(torch.uint64)
+    return out
+
+
+def _build_sharded_program(spec: FusedSpec, key: str, num_parts: int,
+                           capacity: int, bsig: Tuple = (),
+                           psig: Tuple = ()):
+    """Program closure for one sharded (fragment, partitions, capacity)
+    cache entry: the reference's per-shard fragment body, run for all
+    ``num_parts`` partitions at once over ``(num_parts, bucket)`` tensors,
+    with its device-side combines, so the host still fetches ONE result
+    per query.
+
+    ``max_part_total`` (the largest single partition's match count) rides
+    the fetch next to the summed total so the run loop can verify its
+    optimistic per-partition capacity without a second sync.
+
+    The join runs per partition row (:func:`_join_sorted_run`); the
+    gathers run on the flattened partitions, each row's positions offset
+    by ``p * bucket``, so the column view, the filter mask and the
+    dictionary/FOR decoders work on 1-D columns as in the single-device
+    program.  Payload columns arrive as packed codes (``bsig``/``psig``
+    carry the layout signatures); dictionaries serve every partition.  The
+    join key stays logical int64 (the sentinel-padding contract).
+    """
+    col_name, fn = spec.agg
+
+    def program(bcols, pcols, bdicts, pdicts, brefs, prefs,
+                n_build, n_probe):
+        bdec = _decoders(bsig, bdicts, brefs)
+        pdec = _decoders(psig, pdicts, prefs)
+        del n_build  # build padding is sentinel-keyed; no live-row mask
+        sk = bcols[key].to(torch.int64)
+        pk = pcols[key].to(torch.int64)
+        dev = pk.device
+        build_idx, probe_idx, valid, total = _join_sorted_run(
+            sk, pk, n_probe, capacity)
+        part = torch.arange(num_parts, device=dev)[:, None]
+        view = _JoinView({k: v.reshape(-1) for k, v in bcols.items()},
+                         {k: v.reshape(-1) for k, v in pcols.items()}, key,
+                         (build_idx + part * sk.shape[1]).reshape(-1),
+                         (probe_idx + part * pk.shape[1]).reshape(-1),
+                         bdec, pdec)
+        valid = valid.reshape(-1)
+        if spec.filter_fn is not None:
+            valid = valid & device_mask(spec.filter_fn, view,
+                                        num_parts * capacity, dev)
+        # sort stage intentionally skipped: the supported aggregates are
+        # order-independent (see sharded_supported)
+        if fn == "count":
+            scalar = valid.sum()
+        else:
+            scalar = _partition_scalar(fn, view[col_name], valid)
+        return {"total": total.sum(), "max_part_total": total.max(),
+                "scalar": scalar, "agg_n": valid.sum()}
+
+    return program
+
+
 def _fetch(out: Dict) -> Dict:
     """THE host sync of a query: every output of the program in one batched
     device→host copy and one synchronise."""
@@ -684,9 +879,14 @@ def run_fused(spec: FusedSpec, build: Relation, probe: Relation,
     is passed — one shared queue per physical device) and holds it until the
     fetch has returned.
 
-    ``shards`` is accepted for interface parity with the reference; this
-    package runs one device, so the request degrades to the single-device
-    program exactly as the reference degrades on a one-device mesh.
+    ``shards=N`` (N >= 2) requests partition-parallel execution over N
+    logical lanes of the device: hash co-partition both sides by the join
+    key, run the fragment for every partition in one batched program, and
+    combine per-partition aggregates on device — still ≤ 1 device→host
+    sync.  The request silently degrades to the single-device program when
+    the fragment is not :func:`sharded_supported` (metrics then report
+    ``devices=1``); dispatch holds a gang lease over one broker lane per
+    partition.
 
     ``guard`` is an optional :class:`~repro_torch.core.guards.ExecutionGuard`:
     a capacity overflow — the device reporting the ACTUAL join fan-out —
@@ -699,7 +899,11 @@ def run_fused(spec: FusedSpec, build: Relation, probe: Relation,
     if broker is None:
         from .resource_broker import default_broker
         broker = default_broker()
-    del shards  # one device: the sharded program waits for its own slice
+    if shards is not None and int(shards) > 1:
+        num_parts = min(int(shards), available_partitions())
+        if num_parts > 1 and sharded_supported(spec, build, probe):
+            return _run_fused_sharded(spec, build, probe, num_parts,
+                                      decision_reason, broker, dev)
     n_build, n_probe = len(build), len(probe)
     b_bucket = capacity_bucket(n_build)
     p_bucket = capacity_bucket(n_probe)
@@ -814,5 +1018,119 @@ def run_fused(spec: FusedSpec, build: Relation, probe: Relation,
         queue_wait_s=queue_wait,
         compiled=any_fresh,
         batched=batched,
+    )
+    return result, metrics
+
+
+# Verified per-partition capacities by (fragment, partitions, key-column
+# tokens): content-addressed, so a mutated table simply misses and re-plans.
+# Bounded as a backstop; overflow costs at most one extra retry per entry.
+_CAP_HINTS: Dict[tuple, int] = {}
+_CAP_HINT_LOCK = threading.Lock()
+_CAP_HINTS_CAP = 512
+
+
+def _run_fused_sharded(spec: FusedSpec, build: Relation, probe: Relation,
+                       num_parts: int, decision_reason: str, broker,
+                       dev: torch.device) -> Tuple[float, OpMetrics]:
+    """Partition-parallel run loop: cached partitioned layouts in, ONE gang
+    dispatch over ``num_parts`` broker lanes, ONE batched fetch out.
+
+    The per-partition capacity is optimistic — the critical partition's
+    probe fill times the sampled duplication factor, with skew slack — and
+    verified on device: ``max_part_total`` rides the single result fetch,
+    a wrong guess costs one retry at the exact bucket, never a wrong
+    answer (the same discipline as the single-device run loop's overflow
+    and dense retries).
+    """
+    n_build, n_probe = len(build), len(probe)
+    syncs = 0
+    queue_wait = 0.0
+    any_fresh = False
+    batched = False
+    broker.ensure_lanes(num_parts)
+    with Timer() as t:
+        stats = key_stats(build, spec.join_key)
+        (bcols, counts_b_dev, counts_b, bucket_b, up_b, log_b, b_lay,
+         bdicts) = get_partitioned_columns(build, spec.join_key, num_parts,
+                                           sort_within=True, device=dev)
+        (pcols, counts_p_dev, counts_p, bucket_p, up_p, log_p, p_lay,
+         pdicts) = get_partitioned_columns(probe, spec.join_key, num_parts,
+                                           sort_within=False, device=dev)
+        brefs = {k: lay.ref for k, lay in b_lay.items()
+                 if lay.encoding == "for"}
+        prefs = {k: lay.ref for k, lay in p_lay.items()
+                 if lay.encoding == "for"}
+        bsig = tuple(sorted((k, lay.signature()) for k, lay in b_lay.items()))
+        psig = tuple(sorted((k, lay.signature()) for k, lay in p_lay.items()))
+        est_part_out = int(max(1, int(counts_p.max())) * stats.dup)
+        capacity = partition_bucket(int(est_part_out * 1.25))
+        # A verified-capacity hint from an earlier run of this fragment over
+        # the same data: the optimistic estimate is recomputed per call, so
+        # without the hint a query whose critical partition overflows it
+        # would pay the overflow retry (a second dispatch + fetch) on EVERY
+        # warm serving query, not just the first.
+        hint_key = (spec.cache_signature(), num_parts,
+                    column_token(build[spec.join_key]),
+                    column_token(probe[spec.join_key]))
+        with _CAP_HINT_LOCK:
+            capacity = max(capacity, _CAP_HINTS.get(hint_key, 0))
+        while True:
+            cache_key = ("sharded", spec.cache_signature(), num_parts,
+                         capacity, bucket_b, bucket_p, bsig, psig, dev.type)
+            prog, fresh = _CACHE.get(
+                cache_key,
+                lambda: _build_sharded_program(spec, spec.join_key,
+                                               num_parts, capacity,
+                                               bsig, psig))
+            any_fresh = any_fresh or fresh
+            # ALWAYS under the gang lease, a fresh program's first call
+            # included: a gang holds every lane, lane 0 among them, so a
+            # sharded run never overlaps a single-lane dispatch
+            lease = broker.device_lease(lanes=num_parts)
+            queue_wait += lease.wait_s
+            try:
+                out = prog(bcols, pcols, bdicts, pdicts, brefs, prefs,
+                           counts_b_dev, counts_p_dev)
+                fetched = _fetch(out)  # THE host sync of the query
+            finally:
+                lease.release()
+                batched = batched or lease.batched
+            if fresh:
+                _CACHE.mark_ready(cache_key)
+            syncs += 1
+            max_part = int(fetched["max_part_total"])
+            if max_part <= capacity:
+                # remember the verified minimal bucket (max() keeps it from
+                # ever shrinking a future optimistic estimate)
+                with _CAP_HINT_LOCK:
+                    if len(_CAP_HINTS) >= _CAP_HINTS_CAP:
+                        _CAP_HINTS.clear()
+                    _CAP_HINTS[hint_key] = max(
+                        _CAP_HINTS.get(hint_key, 0),
+                        partition_bucket(max_part))
+                break
+            capacity = partition_bucket(max_part)  # rare: skewed overflow
+        if spec.agg[1] in ("min", "max") and int(fetched["agg_n"]) == 0:
+            raise ValueError(
+                f"{spec.agg[1]} over an empty result has no identity")
+        result = float(fetched["scalar"])
+    metrics = OpMetrics(
+        op="fused_pipeline",
+        path="tensor",
+        rows_in=n_build + n_probe,
+        rows_out=1,
+        wall_s=t.elapsed,
+        spill=SpillAccount(),
+        peak_working_set_bytes=num_parts * (bucket_b + bucket_p) * 8 * 3
+        + num_parts * capacity * 8 * 3,
+        decision_reason=decision_reason,
+        host_syncs=syncs,
+        h2d_bytes=up_b + up_p,
+        h2d_bytes_logical=log_b + log_p,
+        queue_wait_s=queue_wait,
+        compiled=any_fresh,
+        batched=batched,
+        devices=num_parts,
     )
     return result, metrics

@@ -310,15 +310,32 @@ class PathSelector:
     def _sharded_candidate(self, spec, build, probe, max_shards: int):
         """``(shards, skew, pending_h2d)`` for the partition-parallel fused
         program, or ``(1, 1.0, 0)`` when it is not on the table: the caller
-        did not opt in (``max_shards <= 1``), the mesh has a single device,
-        an input is already device-resident (partitioning plans from host
-        columns), or the fragment is outside the sharded path's bit-for-bit
-        eligibility (:func:`repro_torch.core.fused.sharded_supported`).  Skew and
-        the pending-transfer bytes come from the partition cache's memoized
-        counts — pricing stays O(1) on warm serving paths."""
-        # this package runs one device: the mesh has a single lane, which
-        # is the reference's own answer on a one-device mesh
-        return 1, 1.0, 0
+        did not opt in (``max_shards <= 1``), an input is already
+        device-resident (partitioning plans from host columns), or the
+        fragment is outside the sharded path's bit-for-bit eligibility
+        (:func:`repro_torch.core.fused.sharded_supported`).  Skew and the
+        pending-transfer bytes (to this selector's device) come from the
+        partition cache's memoized counts — pricing stays O(1) on warm
+        serving paths."""
+        if max_shards <= 1:
+            return 1, 1.0, 0
+        if not (isinstance(build, Relation) and isinstance(probe, Relation)):
+            return 1, 1.0, 0
+        from ..distributed.sharding import available_partitions
+        from .fused import sharded_supported
+        from .partition import (partition_counts, partition_skew,
+                                pending_partition_bytes)
+
+        shards = min(int(max_shards), available_partitions())
+        if shards <= 1 or not sharded_supported(spec, build, probe):
+            return 1, 1.0, 0
+        key = spec.join_key
+        skew = partition_skew(partition_counts(build, key, shards))
+        pend = (pending_partition_bytes(build, key, shards, True,
+                                        self.device)
+                + pending_partition_bytes(probe, key, shards, False,
+                                          self.device))
+        return shards, skew, pend
 
     def choose_fragment(self, spec, build: Relation, probe: Relation,
                         work_mem: Optional[int] = None,

@@ -4,8 +4,9 @@ The port of ``src/repro/core/server.py``.  The server hands ``device`` to
 its :class:`~repro_torch.core.session.Session`: tensor-path work runs on
 the CUDA card unless the caller passes ``device="cpu"``, and without a card
 the constructor raises.  Every worker thread launches on its thread's
-current (default) stream.  The sharded path (``max_shards > 1``) is not
-ported and raises.
+current (default) stream.  ``max_shards > 1`` serves sharded fragments over
+that many logical lanes of the one device (at most
+:func:`~repro_torch.distributed.sharding.available_partitions`).
 
 This is the repo's traffic model for the paper's headline claim.  Single-query
 benchmarks (fig1–fig10) measure *throughput* per path; the phase transition
@@ -286,8 +287,7 @@ class QueryServer:
     routes every spill through the T0/T1/T2 hierarchy, makes grants
     tiered, and adds the session-lifetime per-tier books to the report
     (``report.tiers``); ``device`` is the session's device (the CUDA card
-    unless ``"cpu"``).  ``max_shards`` above 1 raises
-    ``NotImplementedError``: the sharded path is ROADMAP Queue 1 item 10.
+    unless ``"cpu"``).
     """
 
     def __init__(self, tables: Dict[str, Relation],
@@ -306,10 +306,6 @@ class QueryServer:
                  guards: Optional[bool] = None,
                  session: Optional[Session] = None,
                  device=None):
-        if max_shards is not None and max_shards > 1:
-            raise NotImplementedError(
-                "QueryServer(max_shards > 1): the sharded fragment path is "
-                "not ported yet (ROADMAP Queue 1 item 10)")
         if session is not None:
             # a prebuilt session owns its broker, governor, work_mem and
             # policy; silently dropping overrides would let a caller
@@ -351,12 +347,23 @@ class QueryServer:
             session = Session(
                 work_mem=32 * MB if work_mem is None else work_mem,
                 policy=policy or "auto", broker=broker, retry=retry,
+                max_shards=1 if max_shards is None else max_shards,
                 tiers=tiers,
                 guards=True if guards is None else guards,
                 device="cuda" if device is None else device)
         self.session = session
         self.governor = session.governor
         self.broker = session.broker
+        # Sharded serving: pre-create the broker's device lanes at build
+        # time (capped at the logical lanes available), so admission quotes
+        # see per-lane waits from the first arrival instead of only after
+        # the first gang dispatch lazily grew the lane set.
+        if self.session.executor.max_shards > 1:
+            from ..distributed.sharding import available_partitions
+
+            self.broker.ensure_lanes(
+                min(self.session.executor.max_shards,
+                    available_partitions()))
         self.faults = session.executor.faults
         for name, rel in tables.items():
             self.session.register(name, rel)
@@ -631,8 +638,11 @@ class QueryServer:
         def quoted_wait(tc: TenantClass) -> float:
             """Admission-time wait estimate: ready-queue work ahead of this
             tenant (same or higher priority) plus in-flight work, spread
-            over the pool, plus the broker's memory-admission quote (the
-            reference's single-lane pricing; the port serves one lane)."""
+            over the pool, plus the broker's memory-admission quote.  A
+            sharded server (``max_shards > 1``) additionally charges the
+            device gang wait — the max over the per-lane expected waits a
+            fan-out dispatch would block on; single-lane servers skip the
+            term so their admission pricing is the single-lane one."""
             with cond:
                 ahead = inflight[0] + sum(
                     1 for e in ready if -e[0] >= tc.priority)
@@ -641,6 +651,11 @@ class QueryServer:
                 q = self.broker.price(
                     ResourceRequest("memory", need_bytes=probe_bytes))
                 est += q.expected_wait_s
+            nlanes = self.session.executor.max_shards
+            if nlanes > 1:
+                dq = self.broker.price(
+                    ResourceRequest("device", lanes=nlanes))
+                est += dq.expected_wait_s
             return est
 
         def dispatcher() -> None:

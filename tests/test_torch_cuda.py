@@ -671,6 +671,43 @@ def test_query_server_on_card_matches_cpu(dev):
         assert (rel is None) or rel.equals(g_rel)
 
 
+@pytest.mark.parametrize("agg", [("w", "sum"), ("b_i32", "sum"),
+                                 ("b_u32", "sum"), ("b_u64", "sum"),
+                                 ("b_u32", "max"), ("b_u16", "min"),
+                                 ("b_f", "max"), ("w", "count")])
+def test_sharded_fragment_on_card_matches_cpu(dev, agg):
+    """The sharded fragment over eight lanes on the card: the CPU's float
+    and counters (integer sums past 2^31 and 2^32 included; CUDA has no
+    ``where`` or comparison for uint16/32/64), one host sync, and a warm
+    run that uploads nothing."""
+    from repro_torch.core import FusedSpec, Relation, col, run_fused
+
+    rng = np.random.default_rng(41)
+    n_b, n_p = 40_000, 60_000
+    build = {"k": rng.permutation(n_b).astype(np.int64) * 7919 + 3,
+             "i32": rng.integers(1 << 20, (1 << 31) - 1, n_b,
+                                 dtype=np.int64).astype(np.int32),
+             "u32": rng.integers(1 << 30, 1 << 32, n_b,
+                                 dtype=np.uint64).astype(np.uint32),
+             "u64": rng.integers(1 << 60, 1 << 62, n_b, dtype=np.uint64),
+             "u16": rng.integers(0, 1 << 16, n_b).astype(np.uint16),
+             "f": rng.normal(size=n_b)}
+    probe = {"k": build["k"][rng.integers(0, n_b, n_p)],
+             "w": rng.integers(-100, 100, n_p).astype(np.int64)}
+    spec = FusedSpec("k", col("w") < 50, (), agg)
+    out = {}
+    for name in ("cuda", "cpu"):
+        b, p = Relation(dict(build)), Relation(dict(probe))
+        runs = [run_fused(spec, b, p, shards=8, device=name)
+                for _ in range(2)]
+        for _, m in runs:
+            assert m.devices == 8 and m.host_syncs == 1
+        assert runs[1][1].h2d_bytes == 0
+        out[name] = [(r, m.h2d_bytes, m.h2d_bytes_logical,
+                      m.peak_working_set_bytes) for r, m in runs]
+    assert out["cuda"] == out["cpu"]
+
+
 def test_fused_sort_on_unsigned_keys_on_card_matches_cpu(dev):
     """uint32 and uint64 sort keys in the fused fragment: the card gives
     the CPU's rows (CUDA has no gather or ``where`` for these dtypes, so

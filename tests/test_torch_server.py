@@ -249,8 +249,9 @@ def test_preemption_reruns_degraded_linear_join_on_tensor_path():
 
 def test_server_device_and_shards(monkeypatch):
     tables = {"t": {"a": np.arange(3, dtype=np.int64)}}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        T.QueryServer(tables, total_mem=None, max_shards=2, device="cpu")
+    sharded = T.QueryServer(tables, total_mem=None, max_shards=2,
+                            device="cpu")
+    assert len(sharded.broker.lanes) == 2  # lanes pre-created at build
     sess = T.Session(work_mem=4 * MB, device="cpu")
     with pytest.raises(ValueError):
         T.QueryServer({}, total_mem=None, session=sess, device="cpu")
