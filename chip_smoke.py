@@ -34,12 +34,15 @@ Phases (any mismatch or exception ends the run with a non-zero exit code):
    and shuffled), ``segment_sum`` bit for bit against its plain version on
    the CPU, with the route the card took, on non-integer values (sorted,
    with one segment holding half the rows, unsorted), on ones (the counts)
-   and on Q-c's integer cents (sorted, skewed, unsorted), float32 flash
-   attention against SDPA, the combine over both routing slots of the
-   layer (one launch, against the plain version and the single-slot
-   kernels added in turn), and the MoE kernels with device time from the
-   profiler's kernel times at both shapes, host time a call at the decode
-   shape, and the library call's;
+   and on Q-c's integer cents (sorted, skewed, unsorted), flash attention
+   against SDPA at Phi-3.5-MoE's heads (bf16 and float32) and
+   DeepSeek-V2-Lite's MLA widths (bf16, D 192, Dv 128), the combine over
+   all routing slots of the layer (one launch, against the plain version
+   and the single-slot kernels added in turn) at Phi-3.5-MoE's top-2 of 16
+   and DeepSeek-V2-Lite's top-6 of 64, and the MoE kernels with device
+   time from the profiler's kernel times at both models' prefill shapes
+   and Phi-3.5-MoE's decode shape, host time a call at the decode shape,
+   and the library call's;
 3. the main path, ``repro_torch.core.Session(policy="tensor",
    device="cuda")``, on a TPC-H SF1 deployment made with numpy from
    ``--seed``: (Q-a) lineitem ⋈ orders → filter → sort → sum, (Q-b) the same
@@ -73,24 +76,30 @@ Phases (any mismatch or exception ends the run with a non-zero exit code):
    failed or shed query, no over-budget event and every lane dispatched.
    The sharded program is plain PyTorch (the reference's per-shard body
    reaches no Pallas kernel), so it adds no kernel row;
-6. LM serving on the card, counters from 0: Phi-3.5-MoE
-   (``phi3.5-moe-42b-a6.6b``) at full width and 24 of its 32 layers in
-   bfloat16, random weights made on the card from ``--seed``; a prefill of
-   2 x 4096 tokens through ``make_prefill_step`` (the bf16 flash-attention
-   kernel on the tensor cores, and the MoE dispatch/combine kernels on the
-   einsum path), then
-   8 requests (prompt 64, 32 new tokens) through ``launch.serve``'s loop
+6. LM serving on the card, three models in turn at full width in
+   bfloat16, random weights made on the card from ``--seed``, each freed
+   before the next (58.65 and 29.26 GiB do not fit together), counters
+   from 0 for each: Phi-3.5-MoE (``phi3.5-moe-42b-a6.6b``) at 24 of its 32
+   layers, DeepSeek-V2-Lite (``deepseek-v2-lite-16b``: MLA, 64 experts
+   top-6 and 2 shared) at all 27 and Mamba2-370m (``mamba2-370m``) at all
+   48.  Each: a prefill of 2 x 4096 tokens through ``make_prefill_step``
+   (the bf16 flash-attention kernel on the tensor cores where the model
+   attends, the MoE dispatch/combine kernels on the einsum path), with its
+   model flops (the reference's formula) over the bf16 peak, then 8
+   requests (prompt 64, 32 new tokens) through ``launch.serve``'s loop
    (``BatchScheduler(4)``, whose admission sort launches the radix sort
-   kernel, and ``generate``); logits must be finite and every request
-   served;
-7. the Phi-3.5-MoE, Yi-9B and Gemma-2 smoke configs on the card and on
-   the CPU with the same float32 weights, counters from 0: prefill logits
-   within 2e-4 and ``generate``'s tokens equal; the float32 attention
-   kernel must run.
+   kernel, and ``generate``, whose decode steps write K/V or MLA's
+   compressed entry at the position and replace mamba's state); logits
+   must be finite and every request served;
+7. the smoke configs of Phi-3.5-MoE, Yi-9B, Gemma-2, DeepSeek-V2-Lite,
+   Mamba2-370m and Jamba-1.5 on the card and on the CPU with the same
+   float32 weights, counters from 0: prefill logits within 2e-4 and
+   ``generate``'s tokens equal; the float32 attention kernel must run.
 
 Phase 2 also holds the four LM kernels against their plain versions at
-phase 6's shapes; their ``launches`` come from phase 6 (the float32
-attention kernel's from phase 7), the relational kernels' from phase 3.
+phase 6's shapes; their ``launches`` come from the phase 6 run of the
+model named by the row's ``at`` (the float32 attention kernel's from
+phase 7), the relational kernels' from phase 3.
 
 The script imports nothing of JAX.  The line before the last is the card as
 ``nvidia-smi`` names it; the last line is one JSON object with the device.
@@ -105,6 +114,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 SF1_ORDERS = 1_500_000
 SF1_LINEITEM = 6_001_215
@@ -113,24 +123,18 @@ D_1992_01_01 = 8035      # TPC-H STARTDATE, days since 1970-01-01
 D_1998_08_02 = 10440     # ENDDATE - 151 days (last O_ORDERDATE)
 D_1995_03_15 = 9204      # TPC-H Q3's date
 D_1995_06_17 = 9298      # TPC-H CURRENTDATE (§4.2.3)
-H100_BYTES_PER_S = 3.35e12   # HBM3, NVIDIA H100 SXM data sheet
-# the H100 SXM's published peak outside the tensor cores (float32,
-# 67 TFLOP/s), taken as the rate of the scalar integer and float64
-# operations of these kernels: an upper bound on their rate, so the
-# operations bound is a lower bound
-H100_SCALAR_OPS_PER_S = 67e12
-# dense bf16 tensor-core peak (H100 SXM data sheet): the rate of the
-# attention products
-H100_BF16_OPS_PER_S = 989e12
-# dense TF32 tensor-core peak (H100 SXM data sheet, 494.7 TFLOP/s without
-# sparsity): the float32 attention kernel's 3xTF32 products run three TF32
-# products for each float32 one
-H100_TF32_OPS_PER_S = 494.7e12
 LM_ARCH = "phi3.5-moe-42b-a6.6b"
 LM_LAYERS = 24               # of 32: the bf16 weights fit one 80 GB card
+#: phase 6's models, served one after the other on the emptied card: (arch,
+#: layers run); Phi-3.5-MoE is cut to fit, the others run at full depth
+LM_MODELS = ((LM_ARCH, LM_LAYERS), ("deepseek-v2-lite-16b", 27),
+             ("mamba2-370m", 48))
+#: device memory left allocated between two of phase 6's models, at most
+LM_LEFT_BYTES = 1 << 30
 PREFILL_BATCH, PREFILL_LEN = 2, 4096
 SERVE_REQUESTS, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 4, 64, 32
-SMOKE_ARCHS = ("phi3.5-moe-42b-a6.6b", "yi-9b", "gemma2-9b")
+SMOKE_ARCHS = ("phi3.5-moe-42b-a6.6b", "yi-9b", "gemma2-9b",
+               "deepseek-v2-lite-16b", "mamba2-370m", "jamba-1.5-large-398b")
 
 
 def fail(msg: str) -> None:
@@ -388,10 +392,17 @@ def host_ms_per_call(fn, calls: int = DECODE_CALLS) -> float:
     return host
 
 
-def bound(nbytes: int, ops: int, ops_per_s: float = H100_SCALAR_OPS_PER_S):
+def bound(nbytes: int, ops: int, ops_per_s: Optional[float] = None):
     """Least time for the work: bytes over the memory rate vs operations
-    over the peak rate, whichever is larger."""
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    over the peak rate, whichever is larger (``repro_torch.roofline.hw``:
+    the H100 SXM's data sheet).  ``ops_per_s`` defaults to the float32
+    rate outside the tensor cores, taken as the rate of the scalar integer
+    and float64 operations of the kernels: an upper bound on it, so the
+    operations bound is a lower bound."""
+    from repro_torch.roofline import hw
+
+    ops_per_s = hw.PEAK_FLOPS_F32 if ops_per_s is None else ops_per_s
+    t_bytes = nbytes / hw.HBM_BW * 1e3
     t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -896,15 +907,32 @@ def attn_err(got, want, what: str) -> float:
     return err
 
 
+#: phase 2's attention shapes, those of phase 6's prefills: (model, B, S,
+#: H, KH, D, Dv, dtypes).  Phi-3.5-MoE's GQA in bf16 (its prefill) and
+#: float32 (phase 7's kernel); DeepSeek-V2-Lite's MLA in bf16: q and k 192
+#: wide, v 128, 16 heads with no grouping
+ATTN_SHAPES = (
+    (LM_ARCH, PREFILL_BATCH, PREFILL_LEN, 32, 8, 128, 128,
+     ("bfloat16", "float32")),
+    ("deepseek-v2-lite-16b", PREFILL_BATCH, PREFILL_LEN, 16, 16, 192, 128,
+     ("bfloat16",)),
+)
+#: phase 2's MoE layer shapes, those of phase 6's prefills: Phi-3.5-MoE's
+#: top-2 of 16 experts (d 4096) and DeepSeek-V2-Lite's top-6 of 64 (d 2048)
+MOE_ARCHS = (LM_ARCH, "deepseek-v2-lite-16b")
+
+
 def lm_kernel_phase(dev, seed: int):
-    """The LM path's kernels at the shapes of phase 6's prefill: flash
-    attention over 2 x 4096 tokens of Phi-3.5-MoE's heads (32 query, 8 kv,
-    head dim 128, causal) in bf16 (the tensor-core kernel, phase 6's) and
-    in float32 (the 3xTF32 kernel, phase 7's), and one routing slot's
-    dispatch and combine over its 8192 tokens (d 4096, 16 experts,
-    capacity 1280), with slots from a real top-2 routing.  Tolerances:
-    attention in float32 within 2e-5 (the reference tests'); in bf16 each
-    output within
+    """The LM path's kernels at the shapes of phase 6's prefills (each
+    row's ``at`` names the model): flash attention over 2 x 4096 tokens of
+    Phi-3.5-MoE's heads (32 query, 8 kv, head dim 128, causal) in bf16 (the
+    tensor-core kernel, phase 6's) and in float32 (the 3xTF32 kernel, phase
+    7's), and of DeepSeek-V2-Lite's MLA heads (16, D 192, Dv 128) in bf16;
+    one routing slot's dispatch and the combine over all k slots of a real
+    top-k routing of 8192 tokens, at Phi-3.5-MoE's shape (d 4096, 16
+    experts top-2, capacity 1280) and DeepSeek-V2-Lite's (d 2048, 64
+    experts top-6, capacity 960).  Tolerances: attention in float32 within
+    2e-5 (the reference tests'); in bf16 each output within
     ``ATTN_BF16_ATOL + ATTN_BF16_RTOL * |plain|``, two bf16 steps of its
     own size, since at S 4096 a typical output is about 0.04 and the
     reference tests' 3e-2 (set at S <= 256) would pass a wrong kernel;
@@ -920,6 +948,7 @@ def lm_kernel_phase(dev, seed: int):
     from repro_torch.kernels.moe_dispatch import ops as MO
     from repro_torch.kernels.moe_dispatch import ref as MR
     from repro_torch.models.moe import _route, capacity_per_expert
+    from repro_torch.roofline import hw
 
     gen = torch.Generator(device=dev).manual_seed(seed)
 
@@ -927,57 +956,63 @@ def lm_kernel_phase(dev, seed: int):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
     rows = []
-    # flash attention at the prefill's shape: bf16 on the wgmma kernel (the
-    # prefill's), then the same inputs in float32 on the 3xTF32 kernel;
-    # each against its plain version and SDPA in its dtype
-    B, S, H, KH, Dh = PREFILL_BATCH, PREFILL_LEN, 32, 8, 128
-    q, k, v = randn(B, S, H, Dh), randn(B, S, KH, Dh), randn(B, S, KH, Dh)
-    scale = Dh ** -0.5
-    pairs = B * H * S * (S + 1) // 2
-    # float32: the least time is the smaller of the flops at the CUDA
-    # cores' float32 rate and three times the flops at the TF32 rate
-    routes = (
-        ("flash_attention", torch.bfloat16, H100_BF16_OPS_PER_S,
-         "src/repro_torch/csrc/flash_attention_sm90.cu"),
-        ("flash_attention_f32", torch.float32,
-         max(H100_SCALAR_OPS_PER_S, H100_TF32_OPS_PER_S / 3),
-         "src/repro_torch/csrc/flash_attention.cu"),
-    )
-    for name, dtype, peak, source in routes:
-        q, k, v = (t.to(dtype) for t in (q, k, v))
-        if FK.select_kernel(q, k, v) != name:
-            fail(f"{dtype} attention does not select the {name} kernel")
+    # flash attention at the prefills' shapes, each against its plain
+    # version and SDPA in its dtype; float32's least time is the smaller of
+    # the flops at the CUDA cores' float32 rate and three times the flops at
+    # the TF32 rate
+    routes = {
+        "bfloat16": ("flash_attention", hw.PEAK_FLOPS_BF16,
+                     "src/repro_torch/csrc/flash_attention_sm90.cu"),
+        "float32": ("flash_attention_f32",
+                    max(hw.PEAK_FLOPS_F32, hw.PEAK_FLOPS_TF32 / 3),
+                    "src/repro_torch/csrc/flash_attention.cu"),
+    }
+    for at, B, S, H, KH, Dh, Dv, dtypes in ATTN_SHAPES:
+        q, k, v = randn(B, S, H, Dh), randn(B, S, KH, Dh), randn(B, S, KH, Dv)
+        scale = Dh ** -0.5
+        pairs = B * H * S * (S + 1) // 2
+        for dtype_name in dtypes:
+            name, peak, source = routes[dtype_name]
+            dtype = getattr(torch, dtype_name)
+            q, k, v = (t.to(dtype) for t in (q, k, v))
+            if FK.select_kernel(q, k, v) != name:
+                fail(f"{dtype} attention does not select the {name} kernel")
 
-        def flash():
-            return FK.flash_attention_fwd(q, k, v, causal=True, scale=scale)
+            def flash():
+                return FK.flash_attention_fwd(q, k, v, causal=True,
+                                              scale=scale)
 
-        got = flash()
-        want = FR.flash_attention_ref(q, k, v, causal=True, scale=scale)
-        err = attn_err(got, want, f"causal, D=128, S=4096, {dtype}")
-        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            got = flash()
+            want = FR.flash_attention_ref(q, k, v, causal=True, scale=scale)
+            err = attn_err(got, want, f"causal, D={Dh}, Dv={Dv}, S={S}, "
+                                      f"{dtype}")
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
 
-        def library():
-            return F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, scale=scale, enable_gqa=True)
+            def library():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, scale=scale,
+                    enable_gqa=H != KH)
 
-        lib_err = float((library().transpose(1, 2).float()
-                         - want.float()).abs().max())
-        t_b, by = bound(q.element_size() * (q.numel() + k.numel() + v.numel()
-                                            + got.numel()),
-                        2 * (Dh + Dh) * pairs, peak)
-        rows.append({"name": name, "route": "cuda", "source": source,
-                     "replaces":
-                         "src/repro/kernels/flash_attention/kernel.py:70",
-                     "max_abs_err": err, "ms": time_ms(flash),
-                     "plain_ms": time_ms(lambda: FR.flash_attention_ref(
-                         q, k, v, causal=True, scale=scale)),
-                     "bound_ms": t_b, "bound_by": by,
-                     "library_ms": time_ms(library),
-                     "shape": f"B={B}, S={S}, H={H}, KH={KH}, D={Dh}, "
-                              f"{dtype}, causal (SDPA differs from the "
-                              f"plain version by {lib_err:.3g})"})
-        del qt, kt, vt, got, want
-    del q, k, v
+            lib_err = float((library().transpose(1, 2).float()
+                             - want.float()).abs().max())
+            t_b, by = bound(q.element_size() * (q.numel() + k.numel()
+                                                + v.numel() + got.numel()),
+                            2 * (Dh + Dv) * pairs, peak)
+            rows.append({"name": name, "at": at, "route": "cuda",
+                         "source": source,
+                         "replaces":
+                             "src/repro/kernels/flash_attention/kernel.py:70",
+                         "max_abs_err": err, "ms": time_ms(flash),
+                         "plain_ms": time_ms(lambda: FR.flash_attention_ref(
+                             q, k, v, causal=True, scale=scale)),
+                         "bound_ms": t_b, "bound_by": by,
+                         "library_ms": time_ms(library),
+                         "shape": f"B={B}, S={S}, H={H}, KH={KH}, D={Dh}, "
+                                  f"Dv={Dv}, {dtype}, causal (SDPA differs "
+                                  f"from the plain version by "
+                                  f"{lib_err:.3g})"})
+            del qt, kt, vt, got, want
+        del q, k, v
     # check only: Gemma-2's heads (16 query, 8 kv, head dim 256) with a
     # window and the tanh soft-cap, cut to 1024 tokens (window 512 so
     # that it masks), in bf16 and float32
@@ -988,71 +1023,28 @@ def lm_kernel_phase(dev, seed: int):
                  FR.flash_attention_ref(q, k, v, **kw),
                  f"D=256, window=512, cap=50, {dtype}")
 
-    # dispatch on one routing slot of a real top-2 routing, reading the
-    # routing's column views as the layer body hands them over (int64
-    # experts, int32 slots, stride 2)
-    cfg = get_config(LM_ARCH)
-    T, d, E = PREFILL_BATCH * PREFILL_LEN, cfg.d_model, cfg.num_experts
-    C = capacity_per_expert(T, E, cfg.experts_per_token, cfg.capacity_factor)
-    x = randn(T, d)
-    router = randn(d, E, dtype=torch.float32) / d ** 0.5
-    topk_idx, topk_w, _ = _route({"router": router}, x, cfg)
-    slot = MO.expert_slots(topk_idx, E)
-    e_view, s_view = topk_idx[:, 0], slot[:, 0]
-    eidx = e_view.to(torch.int32).contiguous()
-    sl = s_view.contiguous()
-    buf = MK.moe_dispatch(x, e_view, s_view, E, C)
-    err = float((buf.float() - MR.dispatch_ref(x, eidx, sl, E, C).float())
-                .abs().max())
-    if err != 0.0:
-        fail(f"moe_dispatch disagrees with its plain version: {err}")
-    both = MK.moe_dispatch(x, topk_idx[:, 1], slot[:, 1], E, C,
-                           into=buf.clone())
-    if not torch.equal(both, buf + MR.dispatch_ref(x, topk_idx[:, 1],
-                                                   slot[:, 1], E, C)):
-        fail("moe_dispatch adding the second slot into the first is not "
-             "buf + b")
-    keep = sl < C
-    kept = int(keep.sum())
-    rows_all = torch.where(keep, eidx.long() * C + sl.long(), E * C)
-    lib_buf = torch.zeros((E * C + 1, d), dtype=x.dtype, device=dev)
-
-    def lib_dispatch():
-        lib_buf.zero_().index_put_((rows_all,), x, accumulate=True)
-
-    t_b, by = bound(kept * d * 2 + T * 8 + E * C * d * 2, kept * d)
-    rows.append({"name": "moe_dispatch", "route": "cuda",
-                 "source": "src/repro_torch/csrc/moe_dispatch.cu",
-                 "replaces": "src/repro/kernels/moe_dispatch/kernel.py:53",
-                 "max_abs_err": err,
-                 "ms": time_ms(lambda: MK.moe_dispatch(x, e_view, s_view, E,
-                                                       C)),
-                 "plain_ms": time_ms(lambda: MR.dispatch_ref(x, e_view,
-                                                             s_view, E, C)),
-                 "bound_ms": t_b, "bound_by": by,
-                 "library_ms": time_ms(lib_dispatch),
-                 "shape": f"T={T}, d={d}, E={E}, C={C}, bf16, {kept} "
-                          f"routed rows, routing column views"})
     # the combine of the layer body: all k slots of the routing as the
     # layer has it (int64 experts and float32 weights as column slices,
-    # int32 slots) over the buffer both slots were dispatched into, at the
-    # prefill's shape and at the decode shape; held bit for bit against the
-    # plain version and against the k single-slot kernels added in turn
-    def combine_case(xs, idx, wk, Cs):
+    # int32 slots) over the buffer all slots were dispatched into; held bit
+    # for bit against the plain version and against the k single-slot
+    # kernels added in turn
+    def combine_case(xs, idx, wk, E, Cs):
+        d = xs.shape[1]
         sk = MO.expert_slots(idx, E)
         b = MK.moe_dispatch(xs, idx[:, 0], sk[:, 0], E, Cs)
         for j in range(1, idx.shape[1]):
             b = MK.moe_dispatch(xs, idx[:, j], sk[:, j], E, Cs, into=b)
         y = MO.combine_slots(b, idx, sk, wk)
         want = MR.combine_slots_ref(b, idx, sk, wk)
-        two_call = None
+        k_call = None
         for j in range(idx.shape[1]):
             c = MK.moe_combine(b, idx[:, j], sk[:, j], wk[:, j])
-            two_call = c if two_call is None else two_call + c
+            k_call = c if k_call is None else k_call + c
         err = float((y.float() - want.float()).abs().max())
-        if not (torch.equal(y, want) and torch.equal(y, two_call)):
+        if not (torch.equal(y, want) and torch.equal(y, k_call)):
             fail(f"moe_combine over {idx.shape[1]} slots disagrees with its "
-                 f"plain version at T={xs.shape[0]} (max |err| {err})")
+                 f"plain version at T={xs.shape[0]}, E={E} (max |err| "
+                 f"{err})")
         keep = sk < Cs
         flat = b.reshape(E * Cs, d)
         rows_k = torch.where(keep, idx * Cs + sk, 0).reshape(-1)
@@ -1067,60 +1059,90 @@ def lm_kernel_phase(dev, seed: int):
             return out
 
         kept_k = int(keep.sum())
-        return (lambda: MO.combine_slots(b, idx, sk, wk), library,
+        return (lambda: MO.combine_slots(b, idx, sk, wk),
+                lambda: MR.combine_slots_ref(b, idx, sk, wk), library,
                 bound(kept_k * d * 2 + T_ * k_ * 16 + T_ * d * 2,
                       (2 * k_ - 1) * T_ * d), kept_k, err)
 
-    call, lib_combine, (t_b, by), kept_k, combine_err = combine_case(
-        x, topk_idx, topk_w, C)
-    rows.append({"name": "moe_combine", "route": "cuda",
-                 "source": "src/repro_torch/csrc/moe_dispatch.cu",
-                 "replaces": "src/repro/kernels/moe_dispatch/kernel.py:98",
-                 "max_abs_err": combine_err, "ms": time_ms(call),
-                 "plain_ms": time_ms(lambda: MR.combine_slots_ref(
-                     both, topk_idx, slot, topk_w)),
-                 "bound_ms": t_b, "bound_by": by,
-                 "library_ms": time_ms(lib_combine),
-                 "shape": f"T={T}, d={d}, E={E}, C={C}, bf16, all "
-                          f"{topk_idx.shape[1]} slots, {kept_k} routed "
-                          f"rows"})
-    prefill_combine = (call, lib_combine)
-    # decode shape: one token per request of a batch of SERVE_BATCH, as
-    # every decode step of phase 6 dispatches them (most of the launches)
-    T4 = SERVE_BATCH
-    C4 = capacity_per_expert(T4, E, cfg.experts_per_token,
-                             cfg.capacity_factor)
-    x4 = randn(T4, d)
-    idx4, w4, _ = _route({"router": router}, x4, cfg)
-    slot4 = MO.expert_slots(idx4, E)
-    ev4, sv4 = idx4[:, 0], slot4[:, 0]
-    e4 = ev4.to(torch.int32).contiguous()
-    s4 = sv4.contiguous()
-    buf4 = MK.moe_dispatch(x4, ev4, sv4, E, C4)
-    if not torch.equal(buf4, MR.dispatch_ref(x4, e4, s4, E, C4)):
-        fail("moe_dispatch disagrees with its plain version at decode shape")
-    kept4 = int((s4 < C4).sum())
-    rows4 = torch.where(s4 < C4, e4.long() * C4 + s4.long(), E * C4)
-    lib4 = torch.zeros((E * C4 + 1, d), dtype=x4.dtype, device=dev)
-    call4, lib_combine4, bound4, kept4c, err4 = combine_case(x4, idx4, w4, C4)
+    prefill = {}   # (name, model) -> (kernel call, library call)
+    for arch in MOE_ARCHS:
+        cfg = get_config(arch)
+        T, d, E = PREFILL_BATCH * PREFILL_LEN, cfg.d_model, cfg.num_experts
+        k = cfg.experts_per_token
+        C = capacity_per_expert(T, E, k, cfg.capacity_factor)
+        x = randn(T, d)
+        router = randn(d, E, dtype=torch.float32) / d ** 0.5
+        topk_idx, topk_w, _ = _route({"router": router}, x, cfg)
+        slot = MO.expert_slots(topk_idx, E)
+        # dispatch on one routing slot, reading the routing's column views
+        # as the layer body hands them over (int64 experts, int32 slots,
+        # stride k)
+        e_view, s_view = topk_idx[:, 0], slot[:, 0]
+        eidx = e_view.to(torch.int32).contiguous()
+        sl = s_view.contiguous()
+        buf = MK.moe_dispatch(x, e_view, s_view, E, C)
+        err = float((buf.float() - MR.dispatch_ref(x, eidx, sl, E, C).float())
+                    .abs().max())
+        if err != 0.0:
+            fail(f"moe_dispatch disagrees with its plain version at {arch}'s "
+                 f"shape: {err}")
+        both = MK.moe_dispatch(x, topk_idx[:, 1], slot[:, 1], E, C,
+                               into=buf.clone())
+        if not torch.equal(both, buf + MR.dispatch_ref(x, topk_idx[:, 1],
+                                                       slot[:, 1], E, C)):
+            fail("moe_dispatch adding the second slot into the first is not "
+                 "buf + b")
+        keep = sl < C
+        kept = int(keep.sum())
+        rows_all = torch.where(keep, eidx.long() * C + sl.long(), E * C)
+        lib_buf = torch.zeros((E * C + 1, d), dtype=x.dtype, device=dev)
+
+        def lib_dispatch(lib_buf=lib_buf, rows_all=rows_all, x=x):
+            lib_buf.zero_().index_put_((rows_all,), x, accumulate=True)
+
+        def dispatch_call(x=x, e_view=e_view, s_view=s_view, E=E, C=C):
+            return MK.moe_dispatch(x, e_view, s_view, E, C)
+
+        t_b, by = bound(kept * d * 2 + T * 8 + E * C * d * 2, kept * d)
+        rows.append({"name": "moe_dispatch", "at": arch, "route": "cuda",
+                     "source": "src/repro_torch/csrc/moe_dispatch.cu",
+                     "replaces":
+                         "src/repro/kernels/moe_dispatch/kernel.py:53",
+                     "max_abs_err": err, "ms": time_ms(dispatch_call),
+                     "plain_ms": time_ms(
+                         lambda: MR.dispatch_ref(x, e_view, s_view, E, C)),
+                     "bound_ms": t_b, "bound_by": by,
+                     "library_ms": time_ms(lib_dispatch),
+                     "shape": f"T={T}, d={d}, E={E}, C={C}, bf16, slot 0 of "
+                              f"top-{k}, {kept} routed rows, routing column "
+                              f"views"})
+        call, plain, lib_combine, (t_b, by), kept_k, combine_err = \
+            combine_case(x, topk_idx, topk_w, E, C)
+        rows.append({"name": "moe_combine", "at": arch, "route": "cuda",
+                     "source": "src/repro_torch/csrc/moe_dispatch.cu",
+                     "replaces":
+                         "src/repro/kernels/moe_dispatch/kernel.py:98",
+                     "max_abs_err": combine_err, "ms": time_ms(call),
+                     "plain_ms": time_ms(plain),
+                     "bound_ms": t_b, "bound_by": by,
+                     "library_ms": time_ms(lib_combine),
+                     "shape": f"T={T}, d={d}, E={E}, C={C}, bf16, all {k} "
+                              f"slots, {kept_k} routed rows"})
+        prefill[("moe_dispatch", arch)] = (dispatch_call, lib_dispatch)
+        prefill[("moe_combine", arch)] = (call, lib_combine)
+        if arch == LM_ARCH:
+            decode, kept_at_decode, decode_err = moe_decode_calls(
+                cfg, router, randn, combine_case)
+
     for r in rows:  # the larger of the prefill and decode readings
-        if r["name"] == "moe_combine":
-            r["max_abs_err"] = max(r["max_abs_err"], err4)
-    kept_at_decode = {"moe_dispatch": f"slot 0, {kept4} routed rows",
-                      "moe_combine": f"both slots, {kept4c} routed rows"}
-    decode = {
-        "moe_dispatch": (
-            lambda: MK.moe_dispatch(x4, ev4, sv4, E, C4),
-            lambda: lib4.zero_().index_put_((rows4,), x4, accumulate=True),
-            bound(kept4 * d * 2 + T4 * 8 + E * C4 * d * 2, kept4 * d)),
-        "moe_combine": (call4, lib_combine4, bound4),
-    }
+        if r["name"] == "moe_combine" and r["at"] == LM_ARCH:
+            r["max_abs_err"] = max(r["max_abs_err"], decode_err)
     # host times first, for every call: the profiler's tracing is not
     # running then
     host = {name: (host_ms_per_call(call), host_ms_per_call(library))
             for name, (call, library, _) in decode.items()}
     for r in rows:
-        if r["name"] in decode:
+        if r["at"] == LM_ARCH and r["name"] in decode:
             call, library, (t_b, by) = decode[r["name"]]
             host_ms, lib_host_ms = host[r["name"]]
             dev_ms, n_kernels = device_ms_per_call(call, r["name"])
@@ -1130,25 +1152,21 @@ def lm_kernel_phase(dev, seed: int):
                      decode_library_host_ms=lib_host_ms,
                      decode_kernels_per_call=n_kernels,
                      decode_bound_ms=t_b)
-            print(f"{r['name']} at decode shape (T={T4}, d={d}, E={E}, "
-                  f"C={C4}, bf16, {kept_at_decode[r['name']]}): device "
-                  f"{dev_ms:.6f} ms a call ({n_kernels} kernels), "
+            print(f"{r['name']} at decode shape ({kept_at_decode[r['name']]})"
+                  f": device {dev_ms:.6f} ms a call ({n_kernels} kernels), "
                   f"host {host_ms:.4f} ms a call; library device "
                   f"{lib_dev_ms:.6f} ms ({lib_kernels} kernels), host "
                   f"{lib_host_ms:.4f} ms; bound {t_b:.6f} ms by {by}",
                   flush=True)
-    # the prefill shape's device time, from the profiler (CUDA events around
-    # one call also time the host's enqueue while the card waits)
-    prefill = {"moe_dispatch": (lambda: MK.moe_dispatch(x, e_view, s_view, E,
-                                                        C), lib_dispatch),
-               "moe_combine": prefill_combine}
+    # the prefill shapes' device time, from the profiler (CUDA events
+    # around one call also time the host's enqueue while the card waits)
     for r in rows:
-        if r["name"] in prefill:
-            call, library = prefill[r["name"]]
+        if (r["name"], r["at"]) in prefill:
+            call, library = prefill[(r["name"], r["at"])]
             r["device_ms"], r["kernels_per_call"] = device_ms_per_call(
                 call, r["name"], 20)
             r["library_device_ms"], _ = device_ms_per_call(library, None, 20)
-            print(f"{r['name']} at the prefill shape: device "
+            print(f"{r['name']} at {r['at']}'s prefill shape: device "
                   f"{r['device_ms']:.4f} ms a call ({r['kernels_per_call']} "
                   f"kernels), library device "
                   f"{r['library_device_ms']:.4f} ms", flush=True)
@@ -1162,6 +1180,50 @@ def lm_kernel_phase(dev, seed: int):
                        MR.dispatch_ref(xs, es, ss, 4, 32)):
         fail("moe_dispatch with duplicate slots (float32) is not exact")
     return rows
+
+
+def moe_decode_calls(cfg, router, randn, combine_case):
+    """Phi-3.5-MoE's MoE kernels at the decode shape: one token per
+    request of a batch of ``SERVE_BATCH``, as every decode step of phase 6
+    dispatches them (most of the launches).  Returns the calls to time
+    (kernel, library, bound) by name, what each routes, and the combine's
+    max abs error."""
+    import torch
+
+    from repro_torch.kernels.moe_dispatch import kernel as MK
+    from repro_torch.kernels.moe_dispatch import ops as MO
+    from repro_torch.kernels.moe_dispatch import ref as MR
+    from repro_torch.models.moe import _route, capacity_per_expert
+
+    T4, d, E = SERVE_BATCH, cfg.d_model, cfg.num_experts
+    C4 = capacity_per_expert(T4, E, cfg.experts_per_token,
+                             cfg.capacity_factor)
+    x4 = randn(T4, d)
+    idx4, w4, _ = _route({"router": router}, x4, cfg)
+    slot4 = MO.expert_slots(idx4, E)
+    ev4, sv4 = idx4[:, 0], slot4[:, 0]
+    e4 = ev4.to(torch.int32).contiguous()
+    s4 = sv4.contiguous()
+    buf4 = MK.moe_dispatch(x4, ev4, sv4, E, C4)
+    if not torch.equal(buf4, MR.dispatch_ref(x4, e4, s4, E, C4)):
+        fail("moe_dispatch disagrees with its plain version at decode shape")
+    kept4 = int((s4 < C4).sum())
+    rows4 = torch.where(s4 < C4, e4.long() * C4 + s4.long(), E * C4)
+    lib4 = torch.zeros((E * C4 + 1, d), dtype=x4.dtype, device=x4.device)
+    call4, _, lib_combine4, bound4, kept4c, err4 = combine_case(x4, idx4, w4,
+                                                                E, C4)
+    where = f"T={T4}, d={d}, E={E}, C={C4}, bf16"
+    kept_at_decode = {"moe_dispatch": f"{where}, slot 0, {kept4} routed rows",
+                      "moe_combine": f"{where}, both slots, {kept4c} routed "
+                                     f"rows"}
+    decode = {
+        "moe_dispatch": (
+            lambda: MK.moe_dispatch(x4, ev4, sv4, E, C4),
+            lambda: lib4.zero_().index_put_((rows4,), x4, accumulate=True),
+            bound(kept4 * d * 2 + T4 * 8 + E * C4 * d * 2, kept4 * d)),
+        "moe_combine": (call4, lib_combine4, bound4),
+    }
+    return decode, kept_at_decode, err4
 
 
 def dispatch_calls(dev, seed: int) -> dict:
@@ -1891,11 +1953,39 @@ def sharded_calls(dev, seed: int, profile: bool = False) -> dict:
 # Phase 6: LM serving (Phi-3.5-MoE at full width) on the card
 # ---------------------------------------------------------------------------
 
-def lm_serving(seed: int, profile: bool = False):
-    """Prefill 2 x 4096 tokens, then serve 8 requests through the serve
-    entry point's loop (BatchScheduler + generate), counters from 0.  With
-    ``profile``, then trace one warm prefill and 12 decode steps at batch
-    4 (not counted in the numbers above)."""
+def lm_phase(seed: int, profile: bool = False):
+    """Phase 6: each model of ``LM_MODELS`` served in turn, the card's
+    memory freed between them (``del`` and ``torch.cuda.empty_cache()``;
+    fails if more than ``LM_LEFT_BYTES`` stay allocated).  Returns the
+    reports and the launch counts of each model's run, by model."""
+    import torch
+
+    reports, launches = {}, {}
+    for arch, layers in LM_MODELS:
+        t0 = time.perf_counter()
+        reports[arch], launches[arch] = lm_serving(arch, layers, seed,
+                                                   profile)
+        gc.collect()
+        torch.cuda.empty_cache()
+        left = torch.cuda.memory_allocated()
+        print(f"{arch}: {time.perf_counter() - t0:.1f} s; "
+              f"{left / 2**30:.3f} GiB left allocated after freeing it",
+              flush=True)
+        if left > LM_LEFT_BYTES:
+            fail(f"{arch}'s run left {left} bytes allocated")
+    return reports, launches
+
+
+def lm_serving(arch: str, layers: int, seed: int, profile: bool = False):
+    """Model ``arch`` at ``layers`` layers and full width in bf16, random
+    weights made on the card from ``seed``: prefill 2 x 4096 tokens (cold,
+    then warm), then serve 8 requests through the serve entry point's loop
+    (BatchScheduler + generate), counters from 0 just before the prefill
+    and read after the serving.  Its kernels must each launch: the radix
+    sort (admission), bf16 flash attention where the model attends, the
+    MoE dispatch and combine where it has experts.  With ``profile``, then
+    trace one warm prefill and 12 decode steps at batch 4 (not counted in
+    the numbers above)."""
     import dataclasses
 
     import numpy as np
@@ -1903,13 +1993,15 @@ def lm_serving(seed: int, profile: bool = False):
 
     from repro_torch import device as D
     from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeSpec
     from repro_torch.launch.serve import make_requests, serve
     from repro_torch.models import init_model
+    from repro_torch.roofline import hw, model_flops
     from repro_torch.serving.engine import make_prefill_step
 
     dev = torch.device("cuda")
-    full = get_config(LM_ARCH)
-    cfg = dataclasses.replace(full, num_layers=LM_LAYERS)
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=layers)
     t0 = time.perf_counter()
     params = init_model(torch.Generator(device=dev).manual_seed(seed), cfg,
                         torch.bfloat16, device=dev)
@@ -1922,8 +2014,10 @@ def lm_serving(seed: int, profile: bool = False):
 
     n_params = count(params)
     print(f"model: {cfg.name} at {cfg.num_layers} of {full.num_layers} "
-          f"layers, d_model "
-          f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, "
+          f"layers, d_model {cfg.d_model}, mixers "
+          f"{sorted({m for m, _ in cfg.prefix + cfg.pattern})} "
+          f"({cfg.attn_type if cfg.uses_attention else 'no attention'}, "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads), "
           f"{cfg.num_experts} experts top-{cfg.experts_per_token}, "
           f"{n_params} parameters in bf16 "
           f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB), made in "
@@ -1950,13 +2044,19 @@ def lm_serving(seed: int, profile: bool = False):
     peak = torch.cuda.max_memory_allocated()
     n_tok = PREFILL_BATCH * PREFILL_LEN
     prefill_launches = D.launch_counts()
-    if prefill_launches["flash_attention"] <= 0:
+    if cfg.uses_attention and prefill_launches["flash_attention"] <= 0:
         fail(f"the prefill did not launch the bf16 flash_attention kernel "
              f"({prefill_launches})")
+    flops = model_flops(cfg, ShapeSpec("prefill", PREFILL_LEN, PREFILL_BATCH,
+                                       "prefill"))
+    least_s = flops / hw.PEAK_FLOPS_BF16
     print(f"prefill {PREFILL_BATCH} x {PREFILL_LEN}: cold {prefill_s[0]:.3f}"
           f" s, warm {prefill_s[1]:.3f} s ({n_tok / prefill_s[1]:.0f} "
           f"tokens/s), peak device memory {peak / 2**30:.2f} GiB, launches "
-          f"{prefill_launches}", flush=True)
+          f"{prefill_launches}; model flops {flops:.4g} (the reference's "
+          f"formula), over the bf16 peak {least_s * 1e3:.3f} ms, so the "
+          f"warm prefill ran at {least_s / prefill_s[1]:.2%} of it",
+          flush=True)
     reqs = make_requests(cfg, SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW, seed)
     step_s = []
     rep = serve(params, cfg, reqs, SERVE_BATCH, device=dev,
@@ -1967,10 +2067,15 @@ def lm_serving(seed: int, profile: bool = False):
         fail(f"serving: {rep['served']} of {SERVE_REQUESTS} requests served")
     if any(not 0 <= t < cfg.vocab_size for r in reqs for t in r.output):
         fail("serving produced a token outside the vocabulary")
-    for k in ("flash_attention", "moe_dispatch", "moe_combine",
-              "radix_sort_pass"):
+    needed = ["radix_sort_pass"]
+    if cfg.uses_attention:
+        needed.append("flash_attention")
+    if cfg.uses_moe:
+        needed += ["moe_dispatch", "moe_combine"]
+    for k in needed:
         if launches[k] <= 0:
-            fail(f"LM serving: kernel {k} was not launched ({launches})")
+            fail(f"{cfg.name} serving: kernel {k} was not launched "
+                 f"({launches})")
     if profile:
         from torch.profiler import ProfilerActivity, profile as trace
 
@@ -1982,17 +2087,19 @@ def lm_serving(seed: int, profile: bool = False):
             step(params, {"tokens": toks})
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-        print_profile("LM prefill", prof, wall_us)
+        print_profile(f"{cfg.name} prefill", prof, wall_us)
         prompts = np.stack([r.prompt[:8] for r in reqs[:SERVE_BATCH]])
         with trace(activities=acts) as prof:
             t0 = time.perf_counter()
             generate(params, cfg, prompts, 5)
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-        print_profile("LM decode (12 steps, batch 4)", prof, wall_us)
+        print_profile(f"{cfg.name} decode (12 steps, batch 4)", prof,
+                      wall_us)
     p50_ms = statistics.median(step_s) * 1e3
     tok_s = rep["tokens"] / rep["seconds"]
-    print(f"serve {SERVE_REQUESTS} requests (prompt {SERVE_PROMPT}, "
+    print(f"{cfg.name}: serve {SERVE_REQUESTS} requests (prompt "
+          f"{SERVE_PROMPT}, "
           f"{SERVE_NEW} new, batch {SERVE_BATCH}): {rep['tokens']} tokens in "
           f"{rep['seconds']:.2f} s ({tok_s:.1f} tokens/s), decode step p50 "
           f"{p50_ms:.2f} ms over {len(step_s)} steps, batches "
@@ -2001,12 +2108,13 @@ def lm_serving(seed: int, profile: bool = False):
               "params": n_params, "init_s": init_s,
               "prefill_cold_s": prefill_s[0], "prefill_warm_s": prefill_s[1],
               "prefill_tokens_per_s": n_tok / prefill_s[1],
-              "prefill_peak_bytes": peak,
+              "prefill_peak_bytes": peak, "prefill_model_flops": flops,
+              "prefill_bf16_peak_share": least_s / prefill_s[1],
               "serve_tokens": rep["tokens"], "serve_s": rep["seconds"],
               "serve_tokens_per_s": tok_s, "decode_step_p50_ms": p50_ms,
               "decode_steps": len(step_s),
               "prefill_launches": prefill_launches, "launches": launches}
-    del params, logits
+    del params, logits, step
     return report, launches
 
 
@@ -2067,9 +2175,9 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one warm run of each query, one warm "
-                         "LM prefill and 12 decode steps with "
-                         "torch.profiler and print where the time goes")
+                    help="also trace one warm run of each query, and one "
+                         "warm prefill and 12 decode steps of each LM with "
+                         "torch.profiler, and print where the time goes")
     ap.add_argument("--only", choices=(*ONLY, "lm"),
                     help="run one phase alone and print its numbers as one "
                          "JSON line, to compare two checkouts in turns on "
@@ -2115,7 +2223,8 @@ def main() -> None:
     kind = torch.cuda.get_device_name(0)
     print(f"card: {card_line} | torch {torch.__version__} "
           f"cuda {torch.version.cuda} | {kind}", flush=True)
-    print(f"cuts: {LM_ARCH} at {LM_LAYERS} of 32 layers (full width), in "
+    print(f"cuts: {LM_ARCH} at {LM_LAYERS} of 32 layers (full width; "
+          f"deepseek-v2-lite-16b and mamba2-370m uncut), in "
           f"bfloat16 where the reference defaults to float32, random "
           f"weights from --seed {args.seed}; prompts of {PREFILL_BATCH} x "
           f"{PREFILL_LEN} tokens (prefill) and {SERVE_REQUESTS} requests of "
@@ -2137,7 +2246,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if args.only == "lm":
-        res, _ = lm_serving(args.seed, args.profile)
+        res = {"models": lm_phase(args.seed, args.profile)[0]}
     elif args.only == "sharded":
         res = sharded_calls(dev, args.seed, args.profile)
     elif args.only is not None:
@@ -2163,8 +2272,10 @@ def main() -> None:
     rows = kernel_phase(orders, lineitem, dev)
     rows.append(sort_kernel_phase(orders, dev))
     lm_rows = lm_kernel_phase(dev, args.seed)
+    for r in rows:
+        r["at"] = "tpch-sf1"
     for r in rows + lm_rows:
-        print(f"kernel {r['name']}: {r['ms']:.4f} ms (plain "
+        print(f"kernel {r['name']} ({r['at']}): {r['ms']:.4f} ms (plain "
               f"{r['plain_ms']:.4f}, library {r['library_ms']}, bound "
               f"{r['bound_ms']:.4f} by {r['bound_by']}) at {r['shape']}",
               flush=True)
@@ -2220,9 +2331,7 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    lm, lm_launches = lm_serving(args.seed, args.profile)
-    gc.collect()
-    torch.cuda.empty_cache()
+    lm, lm_launches = lm_phase(args.seed, args.profile)
     print(f"LM serving phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # phase 7: the smoke configs on the card and the CPU (float32)
@@ -2230,16 +2339,19 @@ def main() -> None:
 
     for r in rows:
         r["launches"] = launches[r["name"]]
-    for r in lm_rows:
+    for r in lm_rows:  # each row's launches from its model's run
         r["launches"] = (f32_launches if r["name"] == "flash_attention_f32"
-                         else lm_launches)[r["name"]]
+                         else lm_launches[r["at"]])[r["name"]]
     rows += lm_rows
     for r in rows:
         if r["launches"] <= 0:
-            fail(f"kernel {r['name']} was not launched on the main path")
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    extras = {r["name"]: {k: v for k, v in r.items() if k not in keys}
+            fail(f"kernel {r['name']} was not launched on the main path "
+                 f"({r['at']})")
+    keys = ("name", "at", "route", "source", "replaces", "launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    extras = {f"{r['name']}@{r['at']}": {k: v for k, v in r.items()
+                                          if k not in keys}
               for r in rows}
     print(json.dumps({"queries": {k: report[k] for k in QUERIES},
                       "peak_allocated_bytes": report["peak_allocated_bytes"],

@@ -1,7 +1,7 @@
-"""LM model substrate: GQA attention (the flash kernel on the card), MoE
-with dual dispatch paths (the dispatch/combine kernels on the card), and
-the period-patterned transformer assembly.  The counterpart of
-``src/repro/models``; MLA and mamba2 are not ported yet."""
+"""LM model substrate: GQA and MLA attention (the flash kernel on the
+card), the Mamba-2 SSD mixer, MoE with dual dispatch paths (the
+dispatch/combine kernels on the card), and the period-patterned
+transformer assembly.  The counterpart of ``src/repro/models``."""
 from .transformer import (
     cross_entropy_loss,
     decode_step,

@@ -1,20 +1,24 @@
-"""Attention: chunked (online-softmax) attention, GQA, local/global.
+"""Attention: chunked (online-softmax) attention, GQA, MLA, local/global.
 
-The counterpart of ``src/repro/models/attention.py:35-224``.
+The counterpart of ``src/repro/models/attention.py``.
 :func:`chunked_attention` keeps the reference's contract and has one route
 per device: on the card it launches the hand-written flash-attention kernel
 (:mod:`repro_torch.kernels.flash_attention`), on the CPU it runs that
 kernel's plain version with ``q_chunk``/``kv_chunk`` as its tiles.
 :func:`decode_attention` is plain PyTorch, as no TPU kernel replaced it.
 
-MLA (``attention.py:231-314`` of the reference) is not ported yet
-(ROADMAP Queue 1 item 11): :func:`init_mla` raises.
+MLA (DeepSeek-V2's multi-head latent attention) keeps the compressed
+``[B, S, kv_lora_rank + qk_rope_dim]`` cache.  Its prefill expands K and V
+per head and goes through the same flash kernel (q and k 192 wide, v 128
+at DeepSeek-V2-Lite's widths, scale ``1/sqrt(qk_nope + qk_rope)``); its
+decode is the reference's *absorbed* form, plain einsums that contract the
+query against the compressed cache.
 
-Decode writes the new token's K/V into the caller's cache tensors in place
-(the reference returns updated copies through ``dynamic_update_slice``),
-which saves a copy of the cache per step.  Like ``dynamic_update_slice``, a
-write at a position past the cache's end lands on its last position, and the
-step then attends to every position.
+Decode writes the new token's K/V (or compressed entry) into the caller's
+cache tensors in place (the reference returns updated copies through
+``dynamic_update_slice``), which saves a copy of the cache per step.  Like
+``dynamic_update_slice``, a write at a position past the cache's end lands
+on its last position, and the step then attends to every position.
 """
 from __future__ import annotations
 
@@ -24,11 +28,12 @@ from typing import Optional
 import torch
 
 from ..kernels.flash_attention.ops import flash_attention
-from .common import apply_rope, init_dense, softcap
+from .common import apply_rope, init_dense, init_rmsnorm, rmsnorm, softcap
 
 __all__ = [
     "chunked_attention", "decode_attention",
-    "init_gqa", "gqa_forward", "gqa_decode", "init_mla",
+    "init_gqa", "gqa_forward", "gqa_decode",
+    "init_mla", "mla_forward", "mla_decode",
 ]
 
 _NEG_INF = -1e30
@@ -73,6 +78,13 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return out.reshape(B, 1, H, Dv).to(q.dtype)
 
 
+def _write_at(cache: torch.Tensor, entry: torch.Tensor, cur_pos: int) -> None:
+    """Write ``entry`` ``[B, 1, ...]`` into ``cache`` ``[B, S, ...]`` at
+    ``cur_pos`` clamped into ``[0, S - 1]``, in place."""
+    at = min(max(cur_pos, 0), cache.shape[1] - 1)
+    cache[:, at:at + 1] = entry.to(cache.dtype)
+
+
 # ---------------------------------------------------------------------------
 # GQA
 # ---------------------------------------------------------------------------
@@ -88,12 +100,6 @@ def init_gqa(gen, cfg, dtype=torch.float32, device=None):
         p["bk"] = torch.zeros((KH * Dh,), dtype=dtype, device=device)
         p["bv"] = torch.zeros((KH * Dh,), dtype=dtype, device=device)
     return p
-
-
-def init_mla(gen, cfg, dtype=torch.float32, device=None):
-    raise NotImplementedError(
-        "MLA (multi-head latent attention) is not ported yet: ROADMAP "
-        "Queue 1 item 11")
 
 
 def _gqa_qkv(params, x, cfg, sin, cos):
@@ -127,11 +133,95 @@ def gqa_decode(params, x, cfg, sin, cos, k_cache, v_cache, cur_pos: int, *,
     (as the reference's ``dynamic_update_slice`` does), attends with the
     mask of ``cur_pos`` itself, and returns ``(out, (k_cache, v_cache))``."""
     B = x.shape[0]
-    at = min(max(cur_pos, 0), k_cache.shape[1] - 1)
     q, k, v = _gqa_qkv(params, x, cfg, sin, cos)
-    k_cache[:, at:at + 1] = k.to(k_cache.dtype)
-    v_cache[:, at:at + 1] = v.to(v_cache.dtype)
+    _write_at(k_cache, k, cur_pos)
+    _write_at(v_cache, v, cur_pos)
     out = decode_attention(q, k_cache, v_cache, cur_pos, window=window,
                            cap=cfg.attn_logit_softcap)
     out = out.reshape(B, 1, cfg.num_heads * cfg.head_dim) @ params["wo"]
     return out, (k_cache, v_cache)
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2 multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+def init_mla(gen, cfg, dtype=torch.float32, device=None):
+    d, H = cfg.d_model, cfg.num_heads
+    rank, nope, rp, vd = (cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.qk_rope_dim,
+                          cfg.v_head_dim)
+    return {"wq": init_dense(gen, d, H * (nope + rp), dtype, device),
+            "w_dkv": init_dense(gen, d, rank + rp, dtype, device),
+            "kv_norm": init_rmsnorm(rank, dtype, device),
+            "w_uk": init_dense(gen, rank, H * nope, dtype, device),
+            "w_uv": init_dense(gen, rank, H * vd, dtype, device),
+            "wo": init_dense(gen, H * vd, d, dtype, device)}
+
+
+def _mla_q(params, x, cfg, sin, cos):
+    B, S, _ = x.shape
+    H, nope, rp = cfg.num_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    q = (x @ params["wq"]).reshape(B, S, H, nope + rp)
+    return q[..., :nope], apply_rope(q[..., nope:], sin, cos)
+
+
+def _mla_ckv(params, x, cfg, sin, cos):
+    """x ``[B, S, d]`` → the compressed latent ``c`` ``[B, S, rank]``
+    (normed) and the shared single-head rope key ``[B, S, rope]``."""
+    rank = cfg.kv_lora_rank
+    ckv = x @ params["w_dkv"]
+    c = rmsnorm(params["kv_norm"], ckv[..., :rank], cfg.norm_eps)
+    k_rope = apply_rope(ckv[..., None, rank:], sin, cos)[:, :, 0, :]
+    return c, k_rope
+
+
+def mla_forward(params, x, cfg, sin, cos, *, q_chunk=256, kv_chunk=1024):
+    """Prefill MLA: K and V expanded per head, flash attention.  Returns
+    ``(out [B, S, d], cache entry [B, S, rank + rope])``.  K is the
+    per-head ``k_nope`` beside the shared rope key, materialised as the
+    reference's ``concatenate`` does: a stride-0 head view would break the
+    bf16 kernel's 16-byte stride rule."""
+    B, S, _ = x.shape
+    H, nope, rp, vd = (cfg.num_heads, cfg.qk_nope_dim, cfg.qk_rope_dim,
+                       cfg.v_head_dim)
+    q_nope, q_rope = _mla_q(params, x, cfg, sin, cos)
+    c, k_rope = _mla_ckv(params, x, cfg, sin, cos)
+    k_nope = (c @ params["w_uk"]).reshape(B, S, H, nope)
+    v = (c @ params["w_uv"]).reshape(B, S, H, vd)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, rp)],
+                  dim=-1)
+    out = chunked_attention(q, k, v, causal=True,
+                            scale=1.0 / math.sqrt(nope + rp),
+                            q_chunk=q_chunk, kv_chunk=kv_chunk)
+    cache = torch.cat([c, k_rope], dim=-1)
+    return out.reshape(B, S, H * vd) @ params["wo"], cache
+
+
+def mla_decode(params, x, cfg, sin, cos, ckv_cache, cur_pos: int):
+    """Absorbed-MLA decode of x ``[B, 1, d]`` against the compressed cache
+    ``[B, S, rank + rope]``, which takes the new entry in place at
+    ``cur_pos`` (clamped).  ``W_uk`` is folded into the query and ``W_uv``
+    applied after the softmax, so the scores contract against the cache as
+    it is, in float32.  Returns ``(out [B, 1, d], ckv_cache)``."""
+    B = x.shape[0]
+    H, nope, rp, vd = (cfg.num_heads, cfg.qk_nope_dim, cfg.qk_rope_dim,
+                       cfg.v_head_dim)
+    rank = cfg.kv_lora_rank
+    q_nope, q_rope = _mla_q(params, x, cfg, sin, cos)
+    c_new, k_rope_new = _mla_ckv(params, x, cfg, sin, cos)
+    _write_at(ckv_cache, torch.cat([c_new, k_rope_new], dim=-1), cur_pos)
+    cache_c = ckv_cache[..., :rank].float()
+    cache_rope = ckv_cache[..., rank:].float()
+    w_uk = params["w_uk"].reshape(rank, H, nope).float()
+    q_abs = torch.einsum("bhn,rhn->bhr", q_nope[:, 0].float(), w_uk)
+    s = torch.einsum("bhr,bsr->bhs", q_abs, cache_c)
+    s = s + torch.einsum("bhp,bsp->bhs", q_rope[:, 0].float(), cache_rope)
+    s = s * (1.0 / math.sqrt(nope + rp))
+    mask = torch.arange(ckv_cache.shape[1], device=x.device) <= cur_pos
+    p = torch.softmax(torch.where(mask, s, _NEG_INF), dim=-1)
+    o_c = torch.einsum("bhs,bsr->bhr", p, cache_c)
+    w_uv = params["w_uv"].reshape(rank, H, vd).float()
+    out = torch.einsum("bhr,rhv->bhv", o_c, w_uv)
+    out = out.reshape(B, 1, H * vd).to(x.dtype) @ params["wo"]
+    return out, ckv_cache

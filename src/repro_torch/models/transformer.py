@@ -12,9 +12,12 @@ Three entry points share the block code:
   * ``decode_step``  — one-token step against a preallocated cache
 
 The cache is a nested dict like the reference's, with ``"pos"`` a Python
-int; ``decode_step`` writes the new K/V into the cache's tensors in place
-and returns the same dict with ``pos`` advanced.  Mamba mixers and MLA are
-not ported yet (ROADMAP Queue 1 item 11) and raise ``NotImplementedError``.
+int: ``{"k", "v"}`` for a GQA slot, ``{"ckv"}`` (the compressed latent
+beside the rope key) for an MLA slot, ``{"conv", "ssd"}`` (the conv's last
+``conv_width - 1`` inputs and the float32 SSD state) for a mamba slot.
+``decode_step`` writes the new K/V or ``ckv`` entry at ``pos`` and stores
+each mamba slot's new state over the old one, all in the cache's tensors in
+place, and returns the same dict with ``pos`` advanced.
 """
 from __future__ import annotations
 
@@ -25,25 +28,16 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
-from .attention import gqa_decode, gqa_forward, init_gqa, init_mla
+from .attention import (gqa_decode, gqa_forward, init_gqa, init_mla,
+                        mla_decode, mla_forward)
 from .common import (init_dense, init_mlp, init_rmsnorm, mlp, mrope_freqs,
                      randn, rmsnorm, rope, softcap)
+from .mamba2 import _dims as mamba_dims
+from .mamba2 import init_mamba2, mamba2_decode, mamba2_forward
 from .moe import init_moe, moe_forward
 
 __all__ = ["init_model", "forward", "prefill", "decode_step", "init_cache",
            "cross_entropy_loss", "model_input_dtypes"]
-
-
-def _unported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported yet: ROADMAP Queue 1 item 11")
-
-
-def _check_supported(cfg: ArchConfig) -> None:
-    if cfg.uses_mamba:
-        raise _unported(f"{cfg.name}'s mamba2 mixer")
-    if cfg.attn_type == "mla":
-        raise _unported(f"{cfg.name}'s MLA attention")
 
 
 # ---------------------------------------------------------------------------
@@ -54,8 +48,8 @@ def _init_slot(gen, cfg: ArchConfig, spec, dtype, device):
     mixer, ffn = spec
     p: Dict[str, Any] = {"norm1": init_rmsnorm(cfg.d_model, dtype, device)}
     if mixer == "mamba":
-        raise _unported("the mamba2 mixer")
-    if cfg.attn_type == "mla":
+        p["mixer"] = init_mamba2(gen, cfg, dtype, device)
+    elif cfg.attn_type == "mla":
         p["mixer"] = init_mla(gen, cfg, dtype, device)
     else:
         p["mixer"] = init_gqa(gen, cfg, dtype, device)
@@ -101,7 +95,6 @@ def init_model(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32,
     period params are filled one period at a time, so the peak is the
     model plus one period."""
     dev = resolve_device(device)
-    _check_supported(cfg)
     params: Dict[str, Any] = {}
     if cfg.modality == "audio_stub":
         # frame embeddings arrive precomputed at d_model: input proj + norm
@@ -149,11 +142,19 @@ def _apply_slot(p, cfg: ArchConfig, spec, x, sin, cos, *, moe_dispatch,
     """Full-sequence slot application. Returns (x, cache_entry, aux)."""
     mixer, ffn = spec
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
-    out, (k, v) = gqa_forward(p["mixer"], h, cfg, sin, cos,
-                              window=_mixer_window(cfg, mixer),
-                              is_causal=cfg.causal, q_chunk=q_chunk,
-                              kv_chunk=kv_chunk)
-    cache_entry = {"k": k, "v": v}
+    if mixer == "mamba":
+        out, (conv_state, ssd_state) = mamba2_forward(p["mixer"], h, cfg)
+        cache_entry = {"conv": conv_state, "ssd": ssd_state}
+    elif cfg.attn_type == "mla":
+        out, ckv = mla_forward(p["mixer"], h, cfg, sin, cos,
+                               q_chunk=q_chunk, kv_chunk=kv_chunk)
+        cache_entry = {"ckv": ckv}
+    else:
+        out, (k, v) = gqa_forward(p["mixer"], h, cfg, sin, cos,
+                                  window=_mixer_window(cfg, mixer),
+                                  is_causal=cfg.causal, q_chunk=q_chunk,
+                                  kv_chunk=kv_chunk)
+        cache_entry = {"k": k, "v": v}
     if cfg.use_post_norm:
         out = rmsnorm(p["postnorm1"], out, cfg.norm_eps)
     x = x + out
@@ -172,12 +173,17 @@ def _apply_slot(p, cfg: ArchConfig, spec, x, sin, cos, *, moe_dispatch,
     return x, cache_entry, aux
 
 
+def _rope_dim(cfg: ArchConfig) -> int:
+    """The width rotary embeddings turn: MLA's rope part, else the head."""
+    return cfg.qk_rope_dim if cfg.attn_type == "mla" else cfg.head_dim
+
+
 def _rope_tables(cfg: ArchConfig, batch, seq_len, device, q_offset=0):
     if cfg.mrope_sections:
-        return mrope_freqs(batch["positions"], cfg.head_dim, cfg.rope_theta,
+        return mrope_freqs(batch["positions"], _rope_dim(cfg), cfg.rope_theta,
                            cfg.mrope_sections)
     positions = (torch.arange(seq_len, device=device) + q_offset)[None, :]
-    return rope(positions, cfg.head_dim, cfg.rope_theta)
+    return rope(positions, _rope_dim(cfg), cfg.rope_theta)
 
 
 def _embed(params, cfg: ArchConfig, batch):
@@ -216,7 +222,6 @@ def forward(params, cfg: ArchConfig, batch, *, collect_cache: bool = False,
             kv_chunk: int = 1024, return_hidden: bool = False):
     """batch: {"tokens": [B,S]} | {"features": [B,S,d]} (+ "positions" for
     M-RoPE).  Returns (logits [B,S,V], aux_loss, cache|None)."""
-    _check_supported(cfg)
     x = _embed(params, cfg, batch)
     B, S = x.shape[0], x.shape[1]
     sin, cos = _rope_tables(cfg, batch, S, x.device)
@@ -273,33 +278,58 @@ def prefill(params, cfg: ArchConfig, batch, **kw):
 def init_cache(cfg: ArchConfig, batch_size: int, max_seq: int,
                dtype=torch.float32, device=None):
     """Preallocated decode cache (zeros), laid out as forward's
-    collect_cache tree, with attention entries fixed at ``max_seq``."""
+    collect_cache tree, with attention entries fixed at ``max_seq``; the
+    SSD state is float32 whatever ``dtype`` is."""
     dev = resolve_device(device)
-    _check_supported(cfg)
 
-    def slot_cache(lead=()):
+    def zeros(shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=dev)
+
+    def slot_cache(spec, lead=()):
+        mixer, _ = spec
+        if mixer == "mamba":
+            _, nheads, _, n, conv_ch = mamba_dims(cfg)
+            return {"conv": zeros(lead + (batch_size, cfg.conv_width - 1,
+                                          conv_ch)),
+                    "ssd": zeros(lead + (batch_size, nheads,
+                                         cfg.ssm_headdim, n), torch.float32)}
+        if cfg.attn_type == "mla":
+            width = cfg.kv_lora_rank + cfg.qk_rope_dim
+            return {"ckv": zeros(lead + (batch_size, max_seq, width))}
         shape = lead + (batch_size, max_seq, cfg.num_kv_heads, cfg.head_dim)
-        return {"k": torch.zeros(shape, dtype=dtype, device=dev),
-                "v": torch.zeros(shape, dtype=dtype, device=dev)}
+        return {"k": zeros(shape), "v": zeros(shape)}
 
     cache: Dict[str, Any] = {
-        "prefix": {f"p{i}": slot_cache() for i in range(len(cfg.prefix))},
+        "prefix": {f"p{i}": slot_cache(spec)
+                   for i, spec in enumerate(cfg.prefix)},
         "blocks": None,
         "pos": 0,
     }
     if cfg.num_periods:
-        cache["blocks"] = {f"s{i}": slot_cache((cfg.num_periods,))
-                           for i in range(cfg.period)}
+        cache["blocks"] = {f"s{i}": slot_cache(spec, (cfg.num_periods,))
+                           for i, spec in enumerate(cfg.pattern)}
     return cache
 
 
 def _decode_slot(p, cfg: ArchConfig, spec, x, sin, cos, cache_entry,
                  pos: int):
+    """One token through a slot; ``cache_entry``'s tensors take the new
+    state in place."""
     mixer, ffn = spec
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
-    out, (k_c, v_c) = gqa_decode(p["mixer"], h, cfg, sin, cos,
-                                 cache_entry["k"], cache_entry["v"], pos,
-                                 window=_mixer_window(cfg, mixer))
+    if mixer == "mamba":
+        out, (conv_s, ssd_s) = mamba2_decode(p["mixer"], h, cfg,
+                                             cache_entry["conv"],
+                                             cache_entry["ssd"])
+        cache_entry["conv"].copy_(conv_s)
+        cache_entry["ssd"].copy_(ssd_s)
+    elif cfg.attn_type == "mla":
+        out, _ = mla_decode(p["mixer"], h, cfg, sin, cos, cache_entry["ckv"],
+                            pos)
+    else:
+        out, _ = gqa_decode(p["mixer"], h, cfg, sin, cos, cache_entry["k"],
+                            cache_entry["v"], pos,
+                            window=_mixer_window(cfg, mixer))
     if cfg.use_post_norm:
         out = rmsnorm(p["postnorm1"], out, cfg.norm_eps)
     x = x + out
@@ -312,14 +342,13 @@ def _decode_slot(p, cfg: ArchConfig, spec, x, sin, cos, cache_entry,
         if cfg.use_post_norm:
             out = rmsnorm(p["postnorm2"], out, cfg.norm_eps)
         x = x + out
-    return x, {"k": k_c, "v": v_c}
+    return x
 
 
 def decode_step(params, cfg: ArchConfig, cache, batch):
     """One decode step.  batch: {"tokens": [B, 1]} (+ "positions" [3,B,1]
     for M-RoPE).  Returns (logits [B, V], cache) with the cache's tensors
     updated in place and ``pos`` advanced."""
-    _check_supported(cfg)
     pos = int(cache["pos"])
     x = _embed(params, cfg, batch)
     if cfg.mrope_sections:
@@ -327,24 +356,22 @@ def decode_step(params, cfg: ArchConfig, cache, batch):
     else:
         positions = torch.full((1, 1), pos, dtype=torch.int32,
                                device=x.device)
-        sin, cos = rope(positions, cfg.head_dim, cfg.rope_theta)
+        sin, cos = rope(positions, _rope_dim(cfg), cfg.rope_theta)
 
-    new_prefix = {}
     for i, spec in enumerate(cfg.prefix):
-        x, entry = _decode_slot(params["prefix"][f"p{i}"], cfg, spec, x,
-                                sin, cos, cache["prefix"][f"p{i}"], pos)
-        new_prefix[f"p{i}"] = entry
+        x = _decode_slot(params["prefix"][f"p{i}"], cfg, spec, x, sin, cos,
+                         cache["prefix"][f"p{i}"], pos)
 
     if cfg.num_periods:
         for n in range(cfg.num_periods):
             period_params = _period(params["blocks"], n)
             period_cache = _period(cache["blocks"], n)
             for i, spec in enumerate(cfg.pattern):
-                x, _ = _decode_slot(period_params[f"s{i}"], cfg, spec, x,
-                                    sin, cos, period_cache[f"s{i}"], pos)
+                x = _decode_slot(period_params[f"s{i}"], cfg, spec, x,
+                                 sin, cos, period_cache[f"s{i}"], pos)
 
     logits = _head(params, cfg, x)[:, 0, :]
-    new_cache = {"prefix": new_prefix, "blocks": cache["blocks"],
+    new_cache = {"prefix": cache["prefix"], "blocks": cache["blocks"],
                  "pos": pos + 1}
     return logits, new_cache
 

@@ -1,3 +1,3 @@
-"""LM serving: prefill/decode step factories, the request scheduler and
-greedy generation (the counterpart of ``src/repro/serving``; ``kv_quant``
-is not ported yet)."""
+"""LM serving: prefill/decode step factories, the request scheduler,
+greedy generation and the int8 KV cache (the counterpart of
+``src/repro/serving``)."""

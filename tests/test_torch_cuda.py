@@ -779,8 +779,9 @@ def test_flash_attention_matches_plain_version(dev, dtype, tol, shape, kw):
 
 
 # the tensor-core kernels' cases: Sq != Sk, padded D and Dv, Gemma-2's
-# window and soft-cap, rows with no visible key, H/KH = 8, ragged tiles, and
-# D 192, 16 and 256
+# window and soft-cap, rows with no visible key, H/KH = 8, ragged tiles,
+# D 192, 16 and 256, and DeepSeek-V2-Lite's MLA widths (q/k 192, v 128, no
+# grouping)
 _TENSOR_CORE_CASES = [
     ((1, 200, 333, 16, 2, 128, 128), {"q_offset": 133}),      # Sq != Sk
     ((1, 300, 300, 4, 2, 80, 96), {}),                       # padded D, Dv
@@ -793,6 +794,7 @@ _TENSOR_CORE_CASES = [
     ((1, 130, 257, 4, 2, 192, 192), {"window": 100}),        # 3 D tiles
     ((1, 70, 70, 2, 1, 16, 16), {}),                         # D = 16
     ((1, 100, 100, 4, 4, 256, 64), {"causal": False}),       # D 256, Dv 64
+    ((2, 300, 300, 16, 16, 192, 128), {}),                   # MLA: 192/128
 ]
 
 
@@ -1021,9 +1023,10 @@ def _combine_case(T, d, E, C, k, dtype, dev, seed):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("k", [1, 2, 4])
+@pytest.mark.parametrize("k", [1, 2, 4, 6])
 @pytest.mark.parametrize("T,d,E,C", [(4, 4096, 16, 16),       # decode
                                      (8192, 4096, 16, 1280),  # prefill
+                                     (8192, 2048, 64, 960),   # DeepSeek
                                      (37, 100, 4, 16),        # scalar tail
                                      (300, 132, 8, 48)])
 def test_moe_combine_slots_matches_plain_versions(dev, dtype, k, T, d, E, C):
@@ -1187,7 +1190,8 @@ def test_unsigned_aggregates_on_card_match_cpu(dev):
 
 
 @pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "yi-9b",
-                                  "gemma2-9b"])
+                                  "gemma2-9b", "deepseek-v2-lite-16b",
+                                  "mamba2-370m", "jamba-1.5-large-398b"])
 def test_smoke_prefill_and_generate_on_card_match_cpu(dev, arch):
     """The same weights on the card and on the CPU: prefill logits within
     2e-4 (float32; matmuls in full float32), generate's tokens equal, and
@@ -1210,7 +1214,8 @@ def test_smoke_prefill_and_generate_on_card_match_cpu(dev, arch):
         logits, _ = make_prefill_step(cfg)(p, batch)
         out[where] = (logits.cpu(), generate(p, cfg, toks[:, :8], 6))
     counts = D.launch_counts()
-    assert counts["flash_attention_f32"] > 0  # float32: the 3xTF32 kernel
+    if cfg.uses_attention:  # float32: the 3xTF32 kernel
+        assert counts["flash_attention_f32"] > 0
     if cfg.uses_moe:
         assert counts["moe_dispatch"] > 0 and counts["moe_combine"] > 0
     torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=2e-4,

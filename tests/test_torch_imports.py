@@ -52,7 +52,9 @@ def test_every_module_imports_with_jax_blocked():
     "repro_torch.kernels.moe_dispatch.ops", "repro_torch.models",
     "repro_torch.models.interop", "repro_torch.serving.engine",
     "repro_torch.launch.serve", "repro_torch.configs",
-    "repro_torch.distributed.sharding", "repro_torch.core.partition"])
+    "repro_torch.distributed.sharding", "repro_torch.core.partition",
+    "repro_torch.models.mamba2", "repro_torch.serving.kv_quant",
+    "repro_torch.roofline"])
 def test_serving_and_sort_modules_stand_alone(module):
     """The serving layer and the sort kernel's package load with JAX
     blocked and pull in nothing of JAX or the reference."""

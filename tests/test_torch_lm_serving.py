@@ -43,7 +43,9 @@ def test_scheduler_order_matches_reference(seed):
     assert not port.queue and port.admit(3) == []
 
 
-@pytest.mark.parametrize("arch", ["yi-9b", "phi3.5-moe-42b-a6.6b"])
+@pytest.mark.parametrize("arch", ["yi-9b", "phi3.5-moe-42b-a6.6b",
+                                  "deepseek-v2-lite-16b", "mamba2-370m",
+                                  "jamba-1.5-large-398b"])
 def test_generate_matches_reference_tokens(arch):
     cfg = get_smoke_config(arch)
     params = JM.init_model(jax.random.PRNGKey(0), cfg)
@@ -78,6 +80,47 @@ def test_prefill_step_then_decode_continues_the_prompt():
         if t == 7:
             torch.testing.assert_close(lr, last, rtol=2e-4, atol=2e-4)
     torch.testing.assert_close(lg, lr, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "mamba2-370m",
+                                  "jamba-1.5-large-398b"])
+def test_prefill_cache_continues_decode_for_mla_and_mamba(arch):
+    """The prefill's cache carries decode on as stepwise decode from the
+    start does: MLA's compressed entries and GQA's K/V copied into a longer
+    cache at their positions, mamba's conv tail and SSD state taken over
+    whole."""
+    cfg = t_smoke(arch)
+    params = init_model(torch.Generator().manual_seed(4), cfg, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (2, 9)).astype(np.int32))
+    last, cache = TE.make_prefill_step(cfg)(params, {"tokens": toks[:, :8]})
+    full = TE.init_cache(cfg, 2, 9, device="cpu")
+    for part in ("prefix", "blocks"):
+        for slot, entry in (cache[part] or {}).items():
+            for name, val in entry.items():
+                dst = full[part][slot][name]
+                if name in ("conv", "ssd"):
+                    dst.copy_(val)
+                else:  # positions: the axis after the batch
+                    dst.narrow(1 + (part == "blocks"), 0, 8).copy_(val)
+    full["pos"] = cache["pos"]
+    step = TE.make_decode_step(cfg)
+    lg, full = step(params, full, {"tokens": toks[:, 8:9]})
+    ref = TE.init_cache(cfg, 2, 9, device="cpu")
+    for t in range(9):
+        lr, ref = step(params, ref, {"tokens": toks[:, t:t + 1]})
+        if t == 7:
+            torch.testing.assert_close(lr, last, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(lg, lr, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "mamba2-370m"])
+def test_serve_runs_mla_and_mamba_on_cpu(arch, capsys):
+    rep = serve.main(["--smoke", "--device", "cpu", "--arch", arch,
+                      "--requests", "3", "--batch-size", "2",
+                      "--prompt-len", "4", "--max-new", "3"])
+    assert rep["served"] == 3 and rep["tokens"] == 9
+    assert "served 3 requests / 9 tokens" in capsys.readouterr().out
 
 
 def test_serve_smoke_runs_on_cpu(capsys):

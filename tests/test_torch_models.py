@@ -1,10 +1,11 @@
 """The port's LM (``repro_torch.models``) against the reference's on the
-CPU, for the Phi-3.5-MoE, Yi-9B and Gemma-2 smoke configs: the same
-weights (the reference's, handed across as numpy through
-``params_from_numpy``) and the same tokens give the same ``forward``
-logits and MoE aux loss, ``prefill`` logits and cache, and ``decode_step``
-logits step by step.  Tolerance 2e-4, as the reference's prefill/decode
-test holds it."""
+CPU, for the smoke configs of every registered architecture that decodes
+(GQA, MLA, Mamba-2 and the Jamba hybrid; M-RoPE and biased QKV) and, for
+forward only, the encoder HuBERT: the same weights (the reference's,
+handed across as numpy through ``params_from_numpy``) and the same inputs
+give the same ``forward`` logits and MoE aux loss, ``prefill`` logits and
+cache, and ``decode_step`` logits step by step.  Tolerance 2e-4, as the
+reference's prefill/decode test holds it."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -19,8 +20,43 @@ from repro_torch.configs import get_config as t_get_config  # noqa: E402
 from repro_torch.configs import get_smoke_config as t_smoke  # noqa: E402
 from repro_torch.models.interop import params_from_numpy  # noqa: E402
 
-ARCHS = ["phi3.5-moe-42b-a6.6b", "yi-9b", "gemma2-9b"]
+ARCHS = ["phi3.5-moe-42b-a6.6b", "yi-9b", "gemma2-9b",
+         "deepseek-v2-lite-16b", "mamba2-370m", "jamba-1.5-large-398b",
+         "qwen2-vl-7b", "starcoder2-15b", "yi-34b"]
+#: encoder-only: forward alone
+ENCODERS = ["hubert-xlarge"]
 TOL = 2e-4
+
+
+def _inputs(cfg, B, S, seed, start=0):
+    """The batch both packages take, as numpy: tokens (or HuBERT's frame
+    features), plus M-RoPE's three position streams from ``start``."""
+    rng = np.random.default_rng(seed)
+    if cfg.modality == "audio_stub":
+        batch = {"features": rng.normal(size=(B, S, cfg.d_model)).astype(
+            np.float32)}
+    else:
+        batch = {"tokens": rng.integers(0, cfg.vocab_size, (B, S)).astype(
+            np.int32)}
+    if cfg.mrope_sections:
+        batch["positions"] = np.broadcast_to(
+            np.arange(start, start + S, dtype=np.int32)[None, None],
+            (3, B, S)).copy()
+    return batch
+
+
+def _jax(batch):
+    return {k: jnp.asarray(v) for k, v in batch.items()}
+
+
+def _torch(batch):
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
+def _step(batch, t):
+    """Position t's one-token batch (positions are ``[3, B, S]``)."""
+    return {k: (v[..., t:t + 1] if k == "positions" else v[:, t:t + 1])
+            for k, v in batch.items()}
 
 
 def _setup(arch, B=2, S=16, seed=0):
@@ -28,9 +64,7 @@ def _setup(arch, B=2, S=16, seed=0):
     assert tcfg == type(tcfg)(**vars(cfg))  # the copied registry agrees
     params = JM.init_model(jax.random.PRNGKey(seed), cfg)
     tp = params_from_numpy(jax.device_get(params), device="cpu")
-    toks = np.random.default_rng(seed).integers(
-        0, cfg.vocab_size, (B, S)).astype(np.int32)
-    return cfg, tcfg, params, tp, toks
+    return cfg, tcfg, params, tp, _inputs(cfg, B, S, seed)
 
 
 def _close(got, want, tol=TOL):
@@ -39,11 +73,11 @@ def _close(got, want, tol=TOL):
                                atol=tol)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ENCODERS)
 def test_forward_matches_reference(arch):
-    cfg, tcfg, params, tp, toks = _setup(arch)
-    lj, aux_j, _ = JM.forward(params, cfg, {"tokens": jnp.asarray(toks)})
-    lt, aux_t, _ = TM.forward(tp, tcfg, {"tokens": torch.from_numpy(toks)})
+    cfg, tcfg, params, tp, batch = _setup(arch)
+    lj, aux_j, _ = JM.forward(params, cfg, _jax(batch))
+    lt, aux_t, _ = TM.forward(tp, tcfg, _torch(batch))
     assert lt.shape == (2, 16, cfg.vocab_size)
     _close(lt, lj)
     np.testing.assert_allclose(float(aux_t), float(aux_j), rtol=1e-6)
@@ -51,50 +85,81 @@ def test_forward_matches_reference(arch):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_matches_reference(arch):
-    cfg, tcfg, params, tp, toks = _setup(arch, seed=1)
-    lj, cj = JM.prefill(params, cfg, {"tokens": jnp.asarray(toks)})
-    lt, ct = TM.prefill(tp, tcfg, {"tokens": torch.from_numpy(toks)})
+    """Logits and every cache entry, prefix and stacked slots: K/V, MLA's
+    compressed ``ckv``, mamba's conv tail and float32 SSD state."""
+    cfg, tcfg, params, tp, batch = _setup(arch, seed=1)
+    lj, cj = JM.prefill(params, cfg, _jax(batch))
+    lt, ct = TM.prefill(tp, tcfg, _torch(batch))
     _close(lt, lj)
     assert ct["pos"] == int(cj["pos"]) == 16
-    for slot, entry in cj["blocks"].items():
-        for name, arr in entry.items():
-            assert tuple(ct["blocks"][slot][name].shape) == arr.shape
-            _close(ct["blocks"][slot][name], arr)
+    n = 0
+    for part in ("prefix", "blocks"):
+        assert sorted(ct[part] or {}) == sorted(cj[part] or {})
+        for slot, entry in (cj[part] or {}).items():
+            assert sorted(ct[part][slot]) == sorted(entry)
+            for name, arr in entry.items():
+                got = ct[part][slot][name]
+                assert tuple(got.shape) == arr.shape, (part, slot, name)
+                assert str(got.dtype).split(".")[-1] == str(arr.dtype)
+                _close(got, arr)
+                n += 1
+    assert n >= cfg.period
 
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_decode_steps_match_reference(arch):
     """Step-by-step decode from an empty cache, against the reference and
     against the port's own full-sequence forward."""
-    cfg, tcfg, params, tp, toks = _setup(arch, S=8, seed=2)
+    cfg, tcfg, params, tp, batch = _setup(arch, S=8, seed=2)
     step = jax.jit(lambda p, c, b: JM.decode_step(p, cfg, c, b))
     cj = JM.init_cache(cfg, 2, 8)
     ct = TM.init_cache(tcfg, 2, 8, device="cpu")
     outs = []
     for t in range(8):
-        lj, cj = step(params, cj, {"tokens": jnp.asarray(toks[:, t:t + 1])})
-        lt, ct = TM.decode_step(tp, tcfg, ct,
-                                {"tokens": torch.from_numpy(toks[:, t:t + 1])})
+        one = _step(batch, t)
+        lj, cj = step(params, cj, _jax(one))
+        lt, ct = TM.decode_step(tp, tcfg, ct, _torch(one))
         _close(lt, lj)
         outs.append(lt)
     assert ct["pos"] == 8
-    full, _, _ = TM.forward(tp, tcfg, {"tokens": torch.from_numpy(toks)})
+    full, _, _ = TM.forward(tp, tcfg, _torch(batch))
     torch.testing.assert_close(torch.stack(outs, 1), full, rtol=5e-2,
                                atol=5e-4)
     # a step past the cache's end writes onto its last position, as the
     # reference's dynamic_update_slice does, and attends to every position
-    nxt = toks[:, :1]
-    lj, cj = step(params, cj, {"tokens": jnp.asarray(nxt)})
-    lt, ct = TM.decode_step(tp, tcfg, ct, {"tokens": torch.from_numpy(nxt)})
+    nxt = _step(_inputs(cfg, 2, 1, seed=3, start=8), 0)
+    lj, cj = step(params, cj, _jax(nxt))
+    lt, ct = TM.decode_step(tp, tcfg, ct, _torch(nxt))
     _close(lt, lj)
     assert ct["pos"] == int(cj["pos"]) == 9
+    for part in ("prefix", "blocks"):  # the cache's state, slot by slot
+        for slot, entry in (cj[part] or {}).items():
+            for name, arr in entry.items():
+                _close(ct[part][slot][name], arr)
 
 
-def test_init_model_layout_matches_reference():
+def _leaves(tree):
+    return jax.tree_util.tree_flatten_with_path(tree)[0]
+
+
+def _node(tree, path):
+    for p in path:
+        tree = tree[p.key]
+    return tree
+
+
+def _count(tree):
+    return sum(_count(v) if isinstance(v, dict) else 1 for v in tree.values())
+
+
+@pytest.mark.parametrize("arch", [ARCHS[0], "deepseek-v2-lite-16b",
+                                  "mamba2-370m", "jamba-1.5-large-398b"])
+def test_init_model_layout_matches_reference(arch):
     """The port's own random init has the reference's keys, shapes and
-    dtypes, stacked periods included, and is reproducible from its
-    generator's seed."""
-    cfg, tcfg = get_smoke_config(ARCHS[0]), t_smoke(ARCHS[0])
+    dtypes, stacked periods included (mamba's float32 ``dt_bias``,
+    ``a_log`` and ``d_skip`` under bf16 weights), and is reproducible from
+    its generator's seed."""
+    cfg, tcfg = get_smoke_config(arch), t_smoke(arch)
     ref = jax.eval_shape(lambda k: JM.init_model(k, cfg, jnp.bfloat16),
                          jax.random.PRNGKey(0))
 
@@ -103,25 +168,54 @@ def test_init_model_layout_matches_reference():
         return TM.init_model(gen, tcfg, torch.bfloat16, device="cpu")
 
     got, again = make(), make()
-    flat_ref = jax.tree_util.tree_flatten_with_path(ref)[0]
-    assert len(flat_ref) > 10
+    flat_ref = _leaves(ref)
+    assert len(flat_ref) > 10 and _count(got) == len(flat_ref)
     for path, leaf in flat_ref:
-        node, node2 = got, again
-        for p in path:
-            node, node2 = node[p.key], node2[p.key]
+        node, node2 = _node(got, path), _node(again, path)
         assert tuple(node.shape) == leaf.shape, path
         assert str(node.dtype).split(".")[-1] == str(leaf.dtype), path
         assert torch.equal(node, node2)
 
 
 def test_unported_mixers_raise():
+    """No mixer is left unported: every registered architecture builds
+    its smoke model and decode cache, and no model module of the port
+    raises ``NotImplementedError``."""
+    from pathlib import Path
+
+    from repro_torch.configs import list_archs
+
     gen = torch.Generator().manual_seed(0)
-    for arch in ("deepseek-v2-lite-16b", "mamba2-370m"):
+    for arch in list_archs():
         cfg = t_smoke(arch)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-            TM.init_model(gen, cfg, device="cpu")
+        params = TM.init_model(gen, cfg, device="cpu")
+        assert params["final_norm"]["scale"].shape == (cfg.d_model,)
+        if not cfg.is_encoder:
+            assert TM.init_cache(cfg, 1, 4, device="cpu")["pos"] == 0
+    models = Path(TM.__file__).parent
+    assert not [f.name for f in models.glob("*.py")
+                if "NotImplementedError" in f.read_text()]
     cfg = t_get_config("phi3.5-moe-42b-a6.6b")
     assert cfg.num_layers == 32 and cfg.d_model == 4096
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "mamba2-370m",
+                                  "jamba-1.5-large-398b"])
+def test_params_from_numpy_carries_every_leaf(arch):
+    """The reference's bf16 MLA, mamba (``a_log``, ``dt_bias``,
+    ``d_skip``, ``conv_w``, ``conv_b``, …) and MoE trees cross leaf by
+    leaf: same keys, shapes, dtypes and bits."""
+    cfg = get_smoke_config(arch)
+    tree = jax.device_get(JM.init_model(jax.random.PRNGKey(4), cfg,
+                                        jnp.bfloat16))
+    got = params_from_numpy(tree, device="cpu")
+    flat = _leaves(tree)
+    assert _count(got) == len(flat)
+    for path, leaf in flat:
+        node = _node(got, path)
+        assert str(node.dtype).split(".")[-1] == str(leaf.dtype), path
+        np.testing.assert_array_equal(node.float().numpy(),
+                                      np.asarray(leaf, np.float32))
 
 
 def test_params_from_numpy_keeps_bfloat16_and_recasts():
