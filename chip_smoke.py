@@ -13,7 +13,8 @@ warm and traced); ``join-probe`` (``radix_hash_probe`` at Q-a's shape with
 the probe codes in order and shuffled, then Q-a and Q-b); ``segment-sum``
 (the segment sum's cases at Q-c's shape, then Q-c and Q-e); ``sharded``
 (phase 5b, after the single-device Q-a; with ``--profile``, traces of
-both); ``lm`` (phase 6).
+both); ``lm`` (phase 6); ``train`` (phase 2's training rows, then phase
+8).
 
 Phases (any mismatch or exception ends the run with a non-zero exit code):
 
@@ -94,12 +95,30 @@ Phases (any mismatch or exception ends the run with a non-zero exit code):
 7. the smoke configs of Phi-3.5-MoE, Yi-9B, Gemma-2, DeepSeek-V2-Lite,
    Mamba2-370m and Jamba-1.5 on the card and on the CPU with the same
    float32 weights, counters from 0: prefill logits within 2e-4 and
-   ``generate``'s tokens equal; the float32 attention kernel must run.
+   ``generate``'s tokens equal; the float32 attention kernel must run;
+8. training on the card, counters from 0: the data pipeline
+   (``repro_torch.data.pipeline``, the reference's defaults: 20,000
+   documents, ``auto``, 1 MB of work_mem; its dedup join and packing sort
+   through the relational engine on the card, and again under ``tensor``,
+   which must give the same batch), then Phi-3.5-MoE at full width and 2
+   of its 32 layers in float32 (2.86 B parameters with AdamW's state),
+   three AdamW steps of 2 x 4096 tokens on the first batch repeated
+   through ``make_train_step`` (the flash-attention forward writing its
+   logsumexp, its backward kernel, the MoE dispatch/combine and their
+   backward with the routing-weight gradient kernel), each step's loss,
+   gradient norm, seconds, tokens/s and model flops (the reference's
+   formula) as a share of the float32 and TF32 peaks, peak memory; then a
+   checkpoint, a fourth step, a restart from the checkpoint and the fourth
+   step again, which must equal the uninterrupted one.  Fails on a loss
+   that is not finite, a parameter without a gradient or a third loss not
+   below the first.
 
 Phase 2 also holds the four LM kernels against their plain versions at
 phase 6's shapes; their ``launches`` come from the phase 6 run of the
 model named by the row's ``at`` (the float32 attention kernel's from
-phase 7), the relational kernels' from phase 3.
+phase 7), the relational kernels' from phase 3; and the training path's
+three (the float32 forward with its logsumexp, its backward, the
+routing-weight gradient) at phase 8's shapes, launches from phase 8.
 
 The script imports nothing of JAX.  The line before the last is the card as
 ``nvidia-smi`` names it; the last line is one JSON object with the device.
@@ -1182,6 +1201,161 @@ def lm_kernel_phase(dev, seed: int):
     return rows
 
 
+#: phase 8's training shapes: Phi-3.5-MoE at full width, 2 of its 32
+#: layers, float32, 2 x 4096 tokens a step
+TRAIN_LAYERS = 2
+TRAIN_AT = "phi3.5-moe-train"
+TRAIN_GRAD_TOL = 1e-4     # the backward, of each gradient's largest |value|
+WGRAD_TOL = 1e-5          # the routing-weight gradient, the same
+
+
+def train_kernel_phase(dev, seed: int):
+    """The training path's new kernels at phase 8's shapes, each against
+    its plain version on the same inputs: the float32 forward writing its
+    row logsumexp (Phi-3.5-MoE's heads, B 2, S 4096, causal; output and
+    logsumexp within ``ATTN_F32_TOL``), the backward kernel at that shape
+    (dq, dk, dv within ``TRAIN_GRAD_TOL`` of the plain version's largest
+    magnitude; SDPA's forward + backward minus its forward beside it),
+    and ``moe_combine_weight_grad`` over a real top-2 routing of 8192
+    tokens (E 16, C 1280, d 4096, float32; within ``WGRAD_TOL``).  The
+    backward's bound counts five products (S, dP, dV, dK, dQ: 2.5 times
+    the forward's flops) at the rate row 6b uses."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention import ref as FR
+    from repro_torch.kernels.moe_dispatch import kernel as MK
+    from repro_torch.kernels.moe_dispatch import ops as MO
+    from repro_torch.kernels.moe_dispatch import ref as MR
+    from repro_torch.models.moe import _route, capacity_per_expert
+    from repro_torch.roofline import hw
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 8)
+    rows = []
+    B, S, H, KH, Dh = PREFILL_BATCH, PREFILL_LEN, 32, 8, 128
+    q, k, v, do = (torch.randn(shape, generator=gen, device=dev)
+                   for shape in ((B, S, H, Dh), (B, S, KH, Dh),
+                                 (B, S, KH, Dh), (B, S, H, Dh)))
+    scale = Dh ** -0.5
+    pairs = B * H * S * (S + 1) // 2
+    f32_rate = max(hw.PEAK_FLOPS_F32, hw.PEAK_FLOPS_TF32 / 3)
+    shape = f"B={B}, S={S}, H={H}, KH={KH}, D={Dh}, Dv={Dh}, float32, causal"
+
+    def fwd():
+        return FK.flash_attention_fwd(q, k, v, causal=True, scale=scale,
+                                      return_lse=True)
+
+    out, lse = fwd()
+    r_out, r_lse = FR.flash_attention_ref(q, k, v, causal=True, scale=scale,
+                                          return_lse=True)
+    err_o = attn_err(out, r_out, f"with its logsumexp, {shape}")
+    err_l = float((lse - r_lse).abs().max())
+    if not err_l <= ATTN_F32_TOL:
+        fail(f"flash_attention_f32's logsumexp differs from its plain "
+             f"version by {err_l}")
+    qt, kt, vt, dot = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
+    kr, vr = (t.repeat_interleave(H // KH, dim=1) for t in (kt, vt))
+    leaves = [t.detach().requires_grad_(True) for t in (qt, kr, vr)]
+
+    def sdpa_fwd():
+        return F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                              scale=scale)
+
+    def sdpa_fwd_bwd():
+        return torch.autograd.grad(sdpa_fwd(), leaves, dot)
+
+    sdpa_fwd_ms = time_ms(sdpa_fwd, 5)
+    t_b, by = bound(4 * (q.numel() + k.numel() + v.numel() + out.numel()
+                         + lse.numel()), 2 * (2 * Dh) * pairs, f32_rate)
+    rows.append({"name": "flash_attention_f32", "at": TRAIN_AT,
+                 "route": "cuda",
+                 "source": "src/repro_torch/csrc/flash_attention.cu",
+                 "replaces": "src/repro/kernels/flash_attention/kernel.py:70",
+                 "max_abs_err": max(err_o, err_l), "ms": time_ms(fwd, 10),
+                 "plain_ms": time_ms(lambda: FR.flash_attention_ref(
+                     q, k, v, causal=True, scale=scale, return_lse=True), 3),
+                 "bound_ms": t_b, "bound_by": by, "library_ms": sdpa_fwd_ms,
+                 "shape": f"{shape}, with the row logsumexp (SDPA forward "
+                          f"with grad, K/V repeated to {H} heads)"})
+    del r_out
+
+    def bwd():
+        return FK.flash_attention_bwd(q, k, v, out, lse, do, causal=True,
+                                      scale=scale)
+
+    got = bwd()
+    want = FR.flash_attention_bwd_ref(q, k, v, out, lse, do, causal=True,
+                                      scale=scale)
+    errs = [float((a - b).abs().max()) for a, b in zip(got, want)]
+    worst = max(e / float(b.abs().max()) for e, b in zip(errs, want))
+    print(f"flash_attention_bwd_f32 check {shape}: max abs err dq/dk/dv "
+          f"{[f'{e:.3g}' for e in errs]}, worst over the largest |plain| "
+          f"{worst:.3g} (tol {TRAIN_GRAD_TOL})", flush=True)
+    if not worst <= TRAIN_GRAD_TOL:
+        fail(f"flash_attention_bwd_f32 disagrees with its plain version: "
+             f"{worst} of the largest magnitude")
+    del got, want
+    t_b, by = bound(4 * (q.numel() + k.numel() + v.numel() + 2 * out.numel()
+                         + lse.numel() + q.numel() + k.numel() + v.numel()),
+                    2 * (3 * Dh + 2 * Dh) * pairs, f32_rate)
+    plain_ms = time_ms(lambda: FR.flash_attention_bwd_ref(
+        q, k, v, out, lse, do, causal=True, scale=scale), 3)
+    rows.append({"name": FK.BWD_KERNEL, "at": TRAIN_AT, "route": "cuda",
+                 "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+                 "replaces": "src/repro/kernels/flash_attention/kernel.py:70",
+                 "max_abs_err": max(errs), "ms": time_ms(bwd, 10),
+                 "plain_ms": plain_ms, "bound_ms": t_b, "bound_by": by,
+                 "library_ms": time_ms(sdpa_fwd_bwd, 5) - sdpa_fwd_ms,
+                 "shape": f"{shape}; library: SDPA forward + backward "
+                          f"minus its forward, K/V repeated to {H} heads"})
+    del q, k, v, do, out, lse, qt, kt, vt, dot, kr, vr, leaves
+
+    cfg = get_config(LM_ARCH)
+    T, d, E = PREFILL_BATCH * PREFILL_LEN, cfg.d_model, cfg.num_experts
+    kk = cfg.experts_per_token
+    C = capacity_per_expert(T, E, kk, cfg.capacity_factor)
+    x = torch.randn((T, d), generator=gen, device=dev)
+    router = torch.randn((d, E), generator=gen, device=dev) / d ** 0.5
+    topk_idx, _, _ = _route({"router": router}, x, cfg)
+    slot = MO.expert_slots(topk_idx, E)
+    buf = torch.randn((E, C, d), generator=gen, device=dev)
+    dy = torch.randn((T, d), generator=gen, device=dev)
+
+    def wgrad():
+        return MK.moe_combine_weight_grad(dy, buf, topk_idx, slot)
+
+    got = wgrad()
+    want = MR.combine_weight_grad_ref(dy, buf, topk_idx, slot)
+    err = float((got - want).abs().max())
+    if not err <= WGRAD_TOL * float(want.abs().max()):
+        fail(f"moe_combine_weight_grad disagrees with its plain version by "
+             f"{err} (largest |plain| {float(want.abs().max())})")
+    keep = slot < C
+    kept = int(keep.sum())
+    flat = buf.reshape(E * C, d)
+    rows_k = torch.where(keep, topk_idx * C + slot, 0).reshape(-1)
+
+    def library():  # index_select · mul · sum, dropped slots zeroed
+        g = torch.index_select(flat, 0, rows_k).view(T, kk, d)
+        return (g * dy[:, None]).sum(-1) * keep
+
+    t_b, by = bound(4 * (T * d + kept * d + T * kk), 2 * kept * d)
+    rows.append({"name": "moe_combine_weight_grad", "at": TRAIN_AT,
+                 "route": "cuda",
+                 "source": "src/repro_torch/csrc/moe_dispatch.cu",
+                 "replaces": "src/repro/kernels/moe_dispatch/kernel.py:98",
+                 "max_abs_err": err, "ms": time_ms(wgrad),
+                 "plain_ms": time_ms(lambda: MR.combine_weight_grad_ref(
+                     dy, buf, topk_idx, slot)),
+                 "bound_ms": t_b, "bound_by": by,
+                 "library_ms": time_ms(library),
+                 "shape": f"T={T}, k={kk}, d={d}, E={E}, C={C}, float32, "
+                          f"{kept} routed rows"})
+    return rows
+
+
 def moe_decode_calls(cfg, router, randn, combine_case):
     """Phi-3.5-MoE's MoE kernels at the decode shape: one token per
     request of a batch of ``SERVE_BATCH``, as every decode step of phase 6
@@ -2165,6 +2339,235 @@ def lm_agreement(seed: int) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: training Phi-3.5-MoE at full width on the card
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS = 3
+#: AdamW's learning rate at full width.  The reference's default, 3e-4
+#: (its smoke configs', d_model 64), overshoots at d_model 4096 without a
+#: warmup: the loss rose from 11.37 to 15.40 and 17.97 over three steps on
+#: the repeated batch (H100 80GB HBM3, 700.00 W), while at 1e-5, 3e-5 and
+#: 1e-4 it fell.  3e-5 is the size of the first steps of a warmup to a
+#: peak of a few 1e-4.
+TRAIN_LR = 3e-5
+
+
+def _grads_set(params) -> None:
+    from repro_torch.train.tree import tree_paths
+
+    missing = ["|".join(p) for p, t in tree_paths(params) if t.grad is None]
+    if missing:
+        fail(f"training: {len(missing)} parameters have no gradient "
+             f"({missing[:5]})")
+
+
+def train_phase(seed: int, profile: bool = False):
+    """Phase 8: ``repro_torch.data.pipeline`` on the card (the reference's
+    ``PipelineConfig`` defaults: 20,000 documents, policy ``auto``, 1 MB of
+    work_mem; seq 4096, batch 2), then Phi-3.5-MoE at full width and
+    ``TRAIN_LAYERS`` of its 32 layers in float32 (random weights from
+    ``seed``), ``make_train_step`` with the reference's default policy
+    (AdamW at ``TRAIN_LR``, recomputation per period) for
+    ``TRAIN_STEPS`` steps on the pipeline's first batch repeated, a
+    checkpoint (``train/checkpoint``),
+    a fourth step, then a restart from the checkpoint and the fourth step
+    again.  Counters from 0 before the pipeline, read after the restarted
+    step.  Fails on a loss that is not finite, a parameter without a
+    gradient, a third loss not below the first, or a restarted fourth step
+    that differs from the uninterrupted one (its loss bit for bit, the
+    parameters within 1e-6: the card sums the embedding's gradient with
+    atomics, in any order).  Returns (report, launch counts)."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch import device as D
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.data.pipeline import (PipelineConfig, batches,
+                                           prepare_order)
+    from repro_torch.models import init_model
+    from repro_torch.roofline import hw, model_flops
+    from repro_torch.train.checkpoint import (restore_checkpoint,
+                                              save_checkpoint)
+    from repro_torch.train.optimizer import adamw
+    from repro_torch.train.trainer import default_policy, make_train_step
+    from repro_torch.train.tree import tree_leaves, tree_map
+
+    dev = torch.device("cuda")
+    full = get_config(LM_ARCH)
+    cfg = dataclasses.replace(full, num_layers=TRAIN_LAYERS)
+    report = {"arch": cfg.name, "layers": cfg.num_layers}
+
+    # the pipeline: its relational join and sort on the card
+    D.reset_launch_counts()
+    pcfg = PipelineConfig(vocab=cfg.vocab_size, seq_len=PREFILL_LEN,
+                          batch_size=PREFILL_BATCH, seed=seed, device="cuda")
+    t0 = time.perf_counter()
+    ordered, metrics, decisions = prepare_order(pcfg)
+    first = next(batches(pcfg, ordered))
+    report["pipeline_s"] = time.perf_counter() - t0
+    pipe_launches = {k: v for k, v in D.launch_counts().items()
+                     if k in D.RELATIONAL_KERNELS}
+    paths = [dd.path for dd in decisions]
+    print(f"train pipeline ({pcfg.num_docs} documents, policy "
+          f"{pcfg.policy}, work_mem {pcfg.work_mem} B): "
+          f"{report['pipeline_s']:.2f} s, {len(ordered)} documents kept, "
+          f"ops {[m.op for m in metrics]}, paths {paths}, relational "
+          f"launches {pipe_launches}", flush=True)
+    if paths[0] == "linear":
+        print("train pipeline: at this size the selector took the linear "
+              "(host) path for the dedup join, so it launched no "
+              "relational kernel", flush=True)
+    # the same pipeline forced onto the tensor path must give the same batch
+    tcfg = dataclasses.replace(pcfg, policy="tensor")
+    before = D.launch_counts()
+    t_ordered, _, _ = prepare_order(tcfg)
+    tensor_launches = {k: v - before[k] for k, v in D.launch_counts().items()
+                       if k in D.RELATIONAL_KERNELS}
+    t_first = next(batches(tcfg, t_ordered))
+    if not all(np.array_equal(first[k], t_first[k]) for k in first):
+        fail("the pipeline's first batch differs between the auto and "
+             "tensor policies")
+    print(f"train pipeline under policy tensor: the same first batch, "
+          f"relational launches {tensor_launches}", flush=True)
+    report["pipeline_launches"] = pipe_launches
+    report["pipeline_tensor_launches"] = tensor_launches
+
+    t0 = time.perf_counter()
+    params = init_model(torch.Generator(device=dev).manual_seed(seed), cfg,
+                        torch.float32, device=dev)
+    for p in tree_leaves(params):
+        p.requires_grad_(True)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    opt = adamw(lr=TRAIN_LR)
+    state = opt.init(params)
+    policy = default_policy(cfg)
+    step = make_train_step(cfg, opt, policy)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in first.items()}
+    torch.cuda.synchronize()
+    print(f"train model: {cfg.name} at {cfg.num_layers} of "
+          f"{full.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, "
+          f"{cfg.num_experts} experts top-{cfg.experts_per_token} of "
+          f"{cfg.moe_d_ff}, {n_params} parameters in float32 with AdamW "
+          f"state ({torch.cuda.memory_allocated() / 2**30:.2f} GiB), made "
+          f"in {time.perf_counter() - t0:.2f} s; AdamW lr {TRAIN_LR}, "
+          f"policy {policy}",
+          flush=True)
+    n_tok = PREFILL_BATCH * PREFILL_LEN
+    flops = model_flops(cfg, ShapeSpec("train", PREFILL_LEN, PREFILL_BATCH,
+                                       "train"))
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+
+    def run_step(i, params, state):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        if not np.isfinite(loss):
+            fail(f"training step {i}: loss {loss}")
+        _grads_set(params)
+        rec = {"step": i, "loss": loss, "grad_norm": gnorm, "s": dt,
+               "tokens_per_s": n_tok / dt,
+               "f32_peak_share": flops / hw.PEAK_FLOPS_F32 / dt,
+               "tf32_peak_share": flops / hw.PEAK_FLOPS_TF32 / dt}
+        print(f"train step {i}: loss {loss:.6f}, grad norm {gnorm:.4f}, "
+              f"{dt:.3f} s, {rec['tokens_per_s']:.0f} tokens/s, model flops "
+              f"{flops:.4g} at {rec['f32_peak_share']:.2%} of the float32 "
+              f"peak ({rec['tf32_peak_share']:.2%} of TF32's)", flush=True)
+        return params, state, rec
+
+    for i in range(1, TRAIN_STEPS + 1):
+        params, state, rec = run_step(i, params, state)
+        steps.append(rec)
+    if not steps[-1]["loss"] < steps[0]["loss"]:
+        fail(f"training: step {TRAIN_STEPS}'s loss {steps[-1]['loss']} is "
+             f"not below step 1's {steps[0]['loss']} on a repeated batch")
+    report["peak_bytes"] = torch.cuda.max_memory_allocated()
+    print(f"train peak device memory {report['peak_bytes'] / 2**30:.2f} GiB",
+          flush=True)
+
+    ckpt_dir = Path(__file__).resolve().parent / "build" / "train_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    save_checkpoint(str(ckpt_dir), TRAIN_STEPS, (params, state))
+    report["ckpt_save_s"] = time.perf_counter() - t0
+    params, state, rec4 = run_step(TRAIN_STEPS + 1, params, state)
+    after = [p.detach().cpu() for p in tree_leaves(params)]
+    # the restart: the state freed, a template of empty tensors naming each
+    # leaf's device, dtype and requires_grad
+    template = tree_map(lambda t: torch.empty(0, dtype=t.dtype, device=dev
+                                              ).requires_grad_(
+        t.requires_grad), (params, state))
+    del params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    (params, state), at = restore_checkpoint(str(ckpt_dir), template)
+    report["ckpt_restore_s"] = time.perf_counter() - t0
+    if at != TRAIN_STEPS or int(state["step"]) != TRAIN_STEPS:
+        fail(f"restored step {at}, optimizer step {int(state['step'])}")
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as trace
+
+        with trace(activities=[ProfilerActivity.CPU,
+                               ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            params, state, rec_r = run_step(TRAIN_STEPS + 1, params, state)
+            wall_us = (time.perf_counter() - t0) * 1e6
+        print_profile("train step (restarted step 4, traced)", prof,
+                      wall_us, top=16)
+    else:
+        params, state, rec_r = run_step(TRAIN_STEPS + 1, params, state)
+    same = 0
+    worst = 0.0
+    for a, b in zip(after, tree_leaves(params)):
+        b = b.detach().cpu()
+        same += int(torch.equal(a, b))
+        worst = max(worst, float((a - b).abs().max()))
+    print(f"train restart: checkpoint of step {TRAIN_STEPS} saved in "
+          f"{report['ckpt_save_s']:.1f} s, restored in "
+          f"{report['ckpt_restore_s']:.1f} s; step {TRAIN_STEPS + 1} loss "
+          f"{rec4['loss']!r} uninterrupted, {rec_r['loss']!r} restarted; "
+          f"{same} of {len(after)} parameter tensors bit-equal, max abs "
+          f"diff {worst:.3g}", flush=True)
+    if rec_r["loss"] != rec4["loss"] or not worst <= 1e-6:
+        fail("training: the restarted step differs from the uninterrupted "
+             "one")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    launches = D.launch_counts()
+    needed = ("flash_attention_f32", "flash_attention_bwd_f32",
+              "moe_dispatch", "moe_combine", "moe_combine_weight_grad")
+    for k in needed:
+        if launches[k] <= 0:
+            fail(f"training: kernel {k} was not launched ({launches})")
+    print(f"train launches (pipeline, {TRAIN_STEPS + 2} steps): {launches}",
+          flush=True)
+    report.update(params=n_params, steps=steps + [rec4], restarted=rec_r,
+                  model_flops=flops, restart_max_abs_diff=worst,
+                  restart_bit_equal_tensors=same, launches=launches)
+    del params, state, after, template
+    gc.collect()
+    torch.cuda.empty_cache()
+    return report, launches
+
+
+def train_calls(dev, seed: int, profile: bool = False) -> dict:
+    """``--only train``: phase 2's training rows, then phase 8."""
+    rows = train_kernel_phase(dev, seed)
+    report, launches = train_phase(seed, profile)
+    for r in rows:
+        r["launches"] = launches[r["name"]]
+    return {"train": report, "kernels": rows}
+
+
 #: the ``--only`` phases besides ``lm`` (phase 6, run by ``lm_serving``)
 ONLY = {"moe-dispatch": dispatch_calls, "moe-layer": moe_layer_calls,
         "join-build": join_build_calls, "join-probe": join_probe_calls,
@@ -2178,7 +2581,7 @@ def main() -> None:
                     help="also trace one warm run of each query, and one "
                          "warm prefill and 12 decode steps of each LM with "
                          "torch.profiler, and print where the time goes")
-    ap.add_argument("--only", choices=(*ONLY, "lm"),
+    ap.add_argument("--only", choices=(*ONLY, "lm", "train"),
                     help="run one phase alone and print its numbers as one "
                          "JSON line, to compare two checkouts in turns on "
                          "one card: moe-dispatch times the layer body's "
@@ -2190,8 +2593,9 @@ def main() -> None:
                          "order and shuffled) and then Q-a and Q-b, "
                          "segment-sum the segment sum's cases at Q-c's "
                          "shape and then Q-c and Q-e, sharded is phase 5b "
-                         "after the single-device Q-a, lm is phase 6 (with "
-                         "--profile, their traces)")
+                         "after the single-device Q-a, lm is phase 6, "
+                         "train is phase 2's training rows and phase 8 "
+                         "(with --profile, their traces)")
     ap.add_argument("--tree", type=Path,
                     help="with --only: drive the repro_torch package of "
                          "this checkout (e.g. a parent commit unpacked with "
@@ -2228,10 +2632,16 @@ def main() -> None:
           f"bfloat16 where the reference defaults to float32, random "
           f"weights from --seed {args.seed}; prompts of {PREFILL_BATCH} x "
           f"{PREFILL_LEN} tokens (prefill) and {SERVE_REQUESTS} requests of "
-          f"{SERVE_PROMPT} + {SERVE_NEW} new tokens (serving)", flush=True)
+          f"{SERVE_PROMPT} + {SERVE_NEW} new tokens (serving); training "
+          f"(phase 8): {LM_ARCH} at {TRAIN_LAYERS} of 32 layers (full "
+          f"width), float32, random weights, {TRAIN_STEPS} + 1 AdamW steps "
+          f"(lr {TRAIN_LR}) of {PREFILL_BATCH} x {PREFILL_LEN} tokens on "
+          f"the pipeline's "
+          f"first batch repeated, recomputation per period (the "
+          f"reference's default policy)", flush=True)
     t0 = time.perf_counter()
     libs = ("segment_join", "multikey_sort", "flash_attention",
-            "flash_attention_sm90", "moe_dispatch")
+            "flash_attention_sm90", "flash_attention_bwd", "moe_dispatch")
     if args.only in ("moe-dispatch", "moe-layer"):
         libs = ("moe_dispatch",)
     elif args.only in ("join-build", "join-probe", "segment-sum", "sharded"):
@@ -2247,6 +2657,8 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     if args.only == "lm":
         res = {"models": lm_phase(args.seed, args.profile)[0]}
+    elif args.only == "train":
+        res = train_calls(dev, args.seed, args.profile)
     elif args.only == "sharded":
         res = sharded_calls(dev, args.seed, args.profile)
     elif args.only is not None:
@@ -2272,9 +2684,10 @@ def main() -> None:
     rows = kernel_phase(orders, lineitem, dev)
     rows.append(sort_kernel_phase(orders, dev))
     lm_rows = lm_kernel_phase(dev, args.seed)
+    train_rows = train_kernel_phase(dev, args.seed)
     for r in rows:
         r["at"] = "tpch-sf1"
-    for r in rows + lm_rows:
+    for r in rows + lm_rows + train_rows:
         print(f"kernel {r['name']} ({r['at']}): {r['ms']:.4f} ms (plain "
               f"{r['plain_ms']:.4f}, library {r['library_ms']}, bound "
               f"{r['bound_ms']:.4f} by {r['bound_by']}) at {r['shape']}",
@@ -2337,12 +2750,21 @@ def main() -> None:
     # phase 7: the smoke configs on the card and the CPU (float32)
     f32_launches = lm_agreement(args.seed)
 
+    # phase 8: training at full width, on the card emptied of phase 6 and 7
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    train, train_launches = train_phase(args.seed, args.profile)
+    print(f"training phase: {time.perf_counter() - t0:.1f} s", flush=True)
+
     for r in rows:
         r["launches"] = launches[r["name"]]
     for r in lm_rows:  # each row's launches from its model's run
         r["launches"] = (f32_launches if r["name"] == "flash_attention_f32"
                          else lm_launches[r["at"]])[r["name"]]
-    rows += lm_rows
+    for r in train_rows:
+        r["launches"] = train_launches[r["name"]]
+    rows += lm_rows + train_rows
     for r in rows:
         if r["launches"] <= 0:
             fail(f"kernel {r['name']} was not launched on the main path "
@@ -2356,7 +2778,7 @@ def main() -> None:
     print(json.dumps({"queries": {k: report[k] for k in QUERIES},
                       "peak_allocated_bytes": report["peak_allocated_bytes"],
                       "serving": serving, "sharded": sharded, "lm": lm,
-                      "kernel_rows": extras}))
+                      "train": train, "kernel_rows": extras}))
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {

@@ -52,7 +52,12 @@
 //     and is added into O in float32 (O = alpha O + P V): the tensor core
 //     truncates as it accumulates, and a running O would lose a few ulps of
 //     its own size per product;
-//   * the output row is acc / max(l, 1e-30).
+//   * the output row is acc / max(l, 1e-30); when the caller asks (the
+//     training path, whose backward in csrc/flash_attention_bwd.cu
+//     recomputes P from it), each row's logsumexp m + log(l) in the
+//     kernel's units (scaled, capped scores) goes to lse [B, H, Sq], +inf
+//     for a row with no visible key (m still -1e30), which the backward
+//     reads as "no key".
 // Tiles that are masked for every row of the block are skipped (causal: past
 // the block's last query; window: before its first key) unless some row of
 // the block has no visible key at all: such a row's answer (the mean of V
@@ -95,6 +100,7 @@ struct Params {
   float scale;
   long long q_offset;
   int vec16;              // every q, k, v row 16-byte aligned
+  float* lse;             // [B, H, Sq] or null
 };
 
 __device__ __forceinline__ bool row_sees_a_key(long long qpos, const Params& p) {
@@ -408,6 +414,9 @@ flash_attention_kernel(Params p) {
     if (!valid_row[r]) continue;
     float* op = p.out + b * p.ob + qi_row[r] * p.os + h_row[r] * p.oh;
     const float den = fmaxf(l[r], 1e-30f);
+    if (p.lse != nullptr && tig == 0)  // the four lanes of a row agree
+      p.lse[(b * p.H + h_row[r]) * p.Sq + qi_row[r]] =
+          m[r] == kMasked ? INFINITY : m[r] + logf(l[r]);
 #pragma unroll
     for (int n = 0; n < kDvTiles; ++n) {
       const int col = n * 8 + 2 * tig;
@@ -465,7 +474,27 @@ bool aligned16(const Params& p) {
 extern "C" {
 
 // float32 q, k, v and out.  Strides are in elements; the last dimension of
-// every tensor is contiguous.
+// every tensor is contiguous.  lse: null, or [B, H, Sq] float32 contiguous
+// (repro_flash_attention_lse).
+int repro_flash_attention_lse(const float* q, const float* k, const float* v,
+                              float* out, int B, int Sq, int Sk, int H,
+                              int KH, int D, int Dv, long long qb,
+                              long long qs, long long qh, long long kb,
+                              long long ks, long long kh, long long vb,
+                              long long vs, long long vh, long long ob,
+                              long long os, long long oh, int causal,
+                              int window, float cap, float scale,
+                              long long q_offset, float* lse, void* stream) {
+  if (D < 1 || D > kMaxD || Dv < 1 || Dv > kMaxD || KH < 1 || H % KH != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0 || Sq == 0) return 0;
+  Params p{q, k, v, out, B, Sq, Sk, H, KH, D, Dv, qb, qs, qh, kb, ks, kh,
+           vb, vs, vh, ob, os, oh, causal, window, cap, scale, q_offset, 0,
+           lse};
+  p.vec16 = aligned16(p) ? 1 : 0;
+  return static_cast<int>(launch_for(p, static_cast<cudaStream_t>(stream)));
+}
+
 int repro_flash_attention(const float* q, const float* k, const float* v,
                           float* out, int B, int Sq, int Sk, int H,
                           int KH, int D, int Dv, long long qb, long long qs,
@@ -474,13 +503,10 @@ int repro_flash_attention(const float* q, const float* k, const float* v,
                           long long vh, long long ob, long long os,
                           long long oh, int causal, int window, float cap,
                           float scale, long long q_offset, void* stream) {
-  if (D < 1 || D > kMaxD || Dv < 1 || Dv > kMaxD || KH < 1 || H % KH != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (B == 0 || Sq == 0) return 0;
-  Params p{q, k, v, out, B, Sq, Sk, H, KH, D, Dv, qb, qs, qh, kb, ks, kh,
-           vb, vs, vh, ob, os, oh, causal, window, cap, scale, q_offset, 0};
-  p.vec16 = aligned16(p) ? 1 : 0;
-  return static_cast<int>(launch_for(p, static_cast<cudaStream_t>(stream)));
+  return repro_flash_attention_lse(q, k, v, out, B, Sq, Sk, H, KH, D, Dv, qb,
+                                   qs, qh, kb, ks, kh, vb, vs, vh, ob, os, oh,
+                                   causal, window, cap, scale, q_offset,
+                                   nullptr, stream);
 }
 
 const char* repro_flash_error_string(int code) {

@@ -59,6 +59,14 @@
 // not a whole number of vectors, or buf or y is not 16-byte aligned, each
 // thread takes V scalar columns of the window instead (same arithmetic).
 //
+// The combine's routing-weight gradient (training's backward; the TPU side
+// has none: the reference differentiates its one-hot einsums),
+//   dw[t, j] = sum_d dy[t, d] * buf[e_tj, s_tj, d],  +0.0 when dropped,
+// one warp per (t, j): the routing read through Route as the forward reads
+// it, the dot product in float32 over 16-byte loads (scalar where d or a
+// row is not aligned), a warp reduction, one store.  Bound: bytes -- dy
+// read once per slot and the k gathered buf rows, against 2 d flops each.
+//
 // The exported functions have a plain C interface (raw device pointers, the
 // caller's stream), launch on that stream, never synchronise and allocate
 // nothing: the dispatch wrapper keeps the workspace of
@@ -399,6 +407,60 @@ cudaError_t combine_slots(const void* buf, int d, const Route& r, int k,
   return cudaGetLastError();
 }
 
+// One warp per (t, j) of the T x k routing: dw[t k + j], float32.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+combine_weight_grad_kernel(const T* __restrict__ dy, const T* __restrict__ buf,
+                           int d, Route r, int k, long long pairs,
+                           float* __restrict__ dw) {
+  constexpr int V = 16 / sizeof(T);
+  const long long pair =
+      (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (pair >= pairs) return;
+  const long long t = pair / k;
+  const int j = static_cast<int>(pair - t * k);
+  const long long row = r.row(t, j);
+  float acc = 0.f;
+  if (row >= 0) {
+    const T* a = dy + t * d;
+    const T* b = buf + row * d;
+    int done = 0;
+    if (d % V == 0 && ((reinterpret_cast<uintptr_t>(a) |
+                        reinterpret_cast<uintptr_t>(b)) & 15) == 0) {
+      const uint4* a4 = reinterpret_cast<const uint4*>(a);
+      const uint4* b4 = reinterpret_cast<const uint4*>(b);
+      for (int vi = lane; vi < d / V; vi += 32) {
+        const uint4 x = a4[vi], y = b4[vi];
+#pragma unroll
+        for (int u = 0; u < V; ++u)
+          acc = fmaf(elem<T>(x, u), elem<T>(y, u), acc);
+      }
+      done = d;
+    }
+    for (int c = done + lane; c < d; c += 32)
+      acc = fmaf(to_f(a[c]), to_f(b[c]), acc);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) dw[pair] = acc;
+}
+
+template <typename T>
+cudaError_t combine_weight_grad(const void* dy, const void* buf, int d,
+                                const Route& r, int k, long long T_, float* dw,
+                                cudaStream_t st) {
+  const long long pairs = T_ * k;
+  const long long blocks = (pairs + kThreads / 32 - 1) / (kThreads / 32);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  combine_weight_grad_kernel<T><<<static_cast<int>(blocks), kThreads, 0,
+                                  st>>>(static_cast<const T*>(dy),
+                                        static_cast<const T*>(buf), d, r, k,
+                                        pairs, dw);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t dispatch(const void* x, int d, const Route& r, int T_,
                      const void* prev, void* buf, int32_t* workspace,
@@ -482,6 +544,30 @@ int repro_moe_combine(const void* buf, int E, int C, int d, int k,
     err = combine_slots<float>(buf, d, r, k, wf, w_ts, w_js, T, y, st);
   else if (dtype == 1)
     err = combine_slots<__nv_bfloat16>(buf, d, r, k, wf, w_ts, w_js, T, y, st);
+  else
+    err = cudaErrorInvalidValue;
+  return static_cast<int>(err);
+}
+
+// dy [T, d] and buf [E, C, d] contiguous, one dtype (0 = float32, 1 =
+// bfloat16); eidx, slot: [T, k] as repro_moe_combine reads them; dw [T, k]
+// float32 contiguous.
+int repro_moe_combine_weight_grad(const void* dy, const void* buf, int E,
+                                  int C, int d, int k, const void* eidx,
+                                  long long e_ts, long long e_js, int e_is64,
+                                  const void* slot, long long s_ts,
+                                  long long s_js, int s_is64, long long T,
+                                  int dtype, float* dw, void* stream) {
+  if (E < 0 || C < 0 || d < 1 || k < 1 || T < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (T == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Route r{eidx, slot, e_ts, e_js, s_ts, s_js, e_is64, s_is64, E, C};
+  cudaError_t err;
+  if (dtype == 0)
+    err = combine_weight_grad<float>(dy, buf, d, r, k, T, dw, st);
+  else if (dtype == 1)
+    err = combine_weight_grad<__nv_bfloat16>(dy, buf, d, r, k, T, dw, st);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

@@ -58,10 +58,12 @@ LAUNCHES: Dict[str, int] = {
     "radix_sort_pass": 0,
     "flash_attention": 0,        # bfloat16, tensor cores (wgmma)
     "flash_attention_f32": 0,    # float32, tensor cores in 3xTF32
+    "flash_attention_bwd_f32": 0,  # its backward, float32 SIMT
     "moe_dispatch": 0,
     "moe_combine": 0,
+    "moe_combine_weight_grad": 0,  # the combine's routing-weight gradient
 }
-#: the relational engine's kernels; the LM path's are the other four
+#: the relational engine's kernels; the LM path's are the others
 RELATIONAL_KERNELS = ("segment_sum", "radix_rank", "join_table_build",
                       "join_table_probe", "radix_sort_pass")
 _COUNT_LOCK = threading.Lock()

@@ -17,6 +17,13 @@ strides, so no transpose is made.  Two kernels serve it, chosen by dtype in
   float32 tolerance; D and Dv up to 256, any element strides.  Launch
   counter ``flash_attention_f32``.
 
+With ``return_lse=True`` (the training path; float32 only) the float32
+kernel also writes each row's logsumexp ``[B, H, Sq]`` (+inf for a row
+with no visible key), which :func:`flash_attention_bwd` reads:
+``csrc/flash_attention_bwd.cu``, SIMT float32 (launch counter
+``flash_attention_bwd_f32``, one a call for its three kernels), whose
+``dq``, ``dk``, ``dv`` come back contiguous in q's, k's and v's layouts.
+
 What neither kernel takes raises ``ValueError``; nothing falls back to the
 other kernel or to the plain version.  The wrapper allocates the output with
 ``torch.empty``, launches on ``torch.cuda.current_stream()``, raises if the
@@ -34,13 +41,15 @@ import torch
 from ...device import (count_launch, device_guard, kernel_library,
                        stream_handle)
 
-__all__ = ["flash_attention_fwd", "select_kernel", "tma_strides",
-           "MAX_HEAD_DIM", "TENSOR_CORE_KERNEL", "F32_KERNEL"]
+__all__ = ["flash_attention_fwd", "flash_attention_bwd", "select_kernel",
+           "tma_strides", "nokey_from", "MAX_HEAD_DIM", "TENSOR_CORE_KERNEL",
+           "F32_KERNEL", "BWD_KERNEL"]
 
 MAX_HEAD_DIM = 256
 #: launch-counter names of the two kernels
 TENSOR_CORE_KERNEL = "flash_attention"
 F32_KERNEL = "flash_attention_f32"
+BWD_KERNEL = "flash_attention_bwd_f32"
 _DTYPES = (torch.float32, torch.bfloat16)
 _I32 = 2 ** 31
 
@@ -64,6 +73,33 @@ def _entry(name: str):
         p, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                        ctypes.c_float)
         fn.argtypes = [p] * 4 + [i] * 7 + [ll] * 12 + [i, i, f, f, ll, p]
+        fn.restype = i
+        errors.argtypes = [i]
+        errors.restype = ctypes.c_char_p
+    return fn, errors
+
+
+def _lse_entry():
+    """``repro_flash_attention_lse``: the float32 kernel's entry with the
+    ``lse`` pointer before the stream."""
+    lib = kernel_library("flash_attention")
+    fn = lib.repro_flash_attention_lse
+    if fn.argtypes is None:
+        p, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                       ctypes.c_float)
+        fn.argtypes = [p] * 4 + [i] * 7 + [ll] * 12 + [i, i, f, f, ll, p, p]
+        fn.restype = i
+    return fn, _entry(F32_KERNEL)[1]
+
+
+def _bwd_entry():
+    lib = kernel_library("flash_attention_bwd")
+    fn, errors = lib.repro_flash_attention_bwd, lib.repro_flash_bwd_error_string
+    if fn.argtypes is None:
+        p, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                       ctypes.c_float)
+        fn.argtypes = ([p] * 10 + [i] * 7 + [ll] * 15 +
+                       [i, i, f, f, ll, ll, p])
         fn.restype = i
         errors.argtypes = [i]
         errors.restype = ctypes.c_char_p
@@ -140,17 +176,21 @@ def select_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: Optional[int] = None,
                         cap: Optional[float] = None, scale: float,
-                        q_offset: int = 0) -> torch.Tensor:
+                        q_offset: int = 0, return_lse: bool = False):
     """q ``[B, Sq, H, D]``; k ``[B, Sk, KH, D]``; v ``[B, Sk, KH, Dv]``
     (one dtype, float32 or bfloat16) → ``[B, Sq, H, Dv]`` in q's dtype.
     Query row i sits at position ``q_offset + i``; kv head ``h // (H //
-    KH)`` serves query head h."""
+    KH)`` serves query head h.  With ``return_lse`` (float32 only) →
+    ``(out, lse)``, lse ``[B, H, Sq]`` float32."""
     for t, what in ((q, "q"), (k, "k"), (v, "v")):
         if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
             raise ValueError(f"{what}: expected a CUDA tensor")
     if q.device != k.device or q.device != v.device:
         raise ValueError("q, k and v must be on one device")
     name = select_kernel(q, k, v)
+    if return_lse and name != F32_KERNEL:
+        raise ValueError(f"only the float32 kernel writes the logsumexp, "
+                         f"not the {q.dtype} one")
     if window is not None and window < 1:
         raise ValueError(f"window must be positive, got {window}")
     if q_offset < 0:
@@ -158,18 +198,91 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, Sq, H, D = q.shape
     Sk, KH, Dv = k.shape[1], k.shape[2], v.shape[3]
     out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if out.numel() == 0:
-        return out
+        return (out, lse) if return_lse else out
     opts = (int(bool(causal)), int(window or 0), float(cap or 0.0),
             float(scale), int(q_offset))
-    fn, errors = _entry(name)
+    if return_lse:
+        fn, errors = _lse_entry()
+        tail = (lse.data_ptr(), stream_handle(q.device))
+    else:
+        fn, errors = _entry(name)
+        tail = (stream_handle(q.device),)
     with device_guard(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 B, Sq, Sk, H, KH, D, Dv, *tma_strides(q), *tma_strides(k),
-                *tma_strides(v), *out.stride()[:3], *opts,
-                stream_handle(q.device))
+                *tma_strides(v), *out.stride()[:3], *opts, *tail)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: error {rc} "
                            f"({errors(rc).decode()})")
     count_launch(name)
-    return out
+    return (out, lse) if return_lse else out
+
+
+def nokey_from(Sq: int, Sk: int, *, causal: bool, window: Optional[int],
+               q_offset: int) -> int:
+    """The first query row that sees no key (``Sq`` when every row sees
+    one): visible keys are ``[pos - window + 1, pos]`` (causal) or ``(pos -
+    window, Sk)``, so with a window the rows at ``q_offset + i >= Sk +
+    window - 1`` see none; without one, every row sees key 0 or all."""
+    if window is None:
+        return Sq
+    return max(0, min(Sq, Sk + window - 1 - q_offset))
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        dout: torch.Tensor, *, causal: bool = True,
+                        window: Optional[int] = None,
+                        cap: Optional[float] = None, scale: float,
+                        q_offset: int = 0):
+    """The gradients ``(dq, dk, dv)`` of :func:`flash_attention_fwd`'s
+    float32 output for ``dout`` ``[B, Sq, H, Dv]``, given the forward's
+    ``out`` and ``lse``; contiguous, in q's, k's and v's shapes.  Inputs at
+    any strides with a contiguous last dimension."""
+    for t, what in ((q, "q"), (k, "k"), (v, "v"), (out, "out"),
+                    (lse, "lse"), (dout, "dout")):
+        if not isinstance(t, torch.Tensor) or t.device != q.device or \
+                t.device.type != "cuda":
+            raise ValueError(f"{what}: expected a CUDA tensor on q's device")
+        if t.dtype != torch.float32:
+            raise ValueError(f"{what}: the backward kernel takes float32, "
+                             f"got {t.dtype}")
+    if select_kernel(q, k, v) != F32_KERNEL:
+        raise ValueError("the backward kernel takes float32 q, k, v")
+    B, Sq, H, D = q.shape
+    Sk, KH, Dv = k.shape[1], k.shape[2], v.shape[3]
+    for t, what in ((out, "out"), (dout, "dout")):
+        if tuple(t.shape) != (B, Sq, H, Dv) or t.stride(-1) != 1:
+            raise ValueError(f"{what}: expected ({B}, {Sq}, {H}, {Dv}) with "
+                             f"a contiguous last dimension")
+    if tuple(lse.shape) != (B, H, Sq) or not lse.is_contiguous():
+        raise ValueError(f"lse: expected contiguous ({B}, {H}, {Sq})")
+    if Sk < 1:
+        raise ValueError("the backward kernel needs at least one key")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be positive, got {window}")
+    dev = q.device
+    dq = torch.empty((B, Sq, H, D), dtype=torch.float32, device=dev)
+    dk = torch.empty((B, Sk, KH, D), dtype=torch.float32, device=dev)
+    dv = torch.empty((B, Sk, KH, Dv), dtype=torch.float32, device=dev)
+    if B == 0 or Sq == 0:
+        return dq, dk.zero_(), dv.zero_()
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
+    nk = nokey_from(Sq, Sk, causal=causal, window=window, q_offset=q_offset)
+    fn, errors = _bwd_entry()
+    with device_guard(dev):
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                B, Sq, Sk, H, KH, D, Dv, *q.stride()[:3], *k.stride()[:3],
+                *v.stride()[:3], *out.stride()[:3], *dout.stride()[:3],
+                int(bool(causal)), int(window or 0), float(cap or 0.0),
+                float(scale), int(q_offset), nk, stream_handle(dev))
+    if rc != 0:
+        raise RuntimeError(f"{BWD_KERNEL} kernel launch failed: error {rc} "
+                           f"({errors(rc).decode()})")
+    count_launch(BWD_KERNEL)
+    return dq, dk, dv

@@ -12,6 +12,16 @@ transpose of ``[B, H, S, D]``) goes in without a copy; the last dimension
 must be contiguous, and bf16 strides whole 16 bytes.  The tile sizes are
 the kernel's own on the card; on the CPU ``q_blk``/``kv_blk`` are the plain
 version's tiles.
+
+Gradients.  On the CPU autograd runs through the plain version.  On the
+card, a call that needs a gradient (grad mode on and q, k or v requiring
+one) goes through :class:`FlashAttention`, an ``autograd.Function`` whose
+forward is the float32 kernel writing each row's logsumexp and whose
+backward is the backward kernel (``csrc/flash_attention_bwd.cu``).  A
+bfloat16 call that needs a gradient raises ``NotImplementedError``: the
+bf16 kernel writes no logsumexp yet (ROADMAP Queue 2 item 14).  A call
+that needs none (serving, under ``torch.no_grad()``) launches the forward
+kernel alone, as before.
 """
 from __future__ import annotations
 
@@ -23,7 +33,37 @@ import torch
 from . import kernel as _k
 from . import ref as _ref
 
-__all__ = ["flash_attention"]
+__all__ = ["flash_attention", "FlashAttention"]
+
+
+class FlashAttention(torch.autograd.Function):
+    """The card's differentiable attention: the float32 forward kernel
+    with its row logsumexp, and the backward kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, cap, scale, q_offset):
+        if q.dtype != torch.float32:
+            raise NotImplementedError(
+                f"no backward for {q.dtype} flash attention on the card: "
+                f"the bf16 kernel writes no logsumexp yet (ROADMAP Queue 2 "
+                f"item 14); train in float32")
+        out, lse = _k.flash_attention_fwd(q, k, v, causal=causal,
+                                          window=window, cap=cap,
+                                          scale=scale, q_offset=q_offset,
+                                          return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.opts = dict(causal=causal, window=window, cap=cap, scale=scale,
+                        q_offset=q_offset)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        if dout.stride(-1) != 1:
+            dout = dout.contiguous()
+        dq, dk, dv = _k.flash_attention_bwd(q, k, v, out, lse, dout,
+                                            **ctx.opts)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -33,6 +73,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     q_blk: int = 256, kv_blk: int = 64) -> torch.Tensor:
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cuda":
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            return FlashAttention.apply(q, k, v, causal, window, cap, scale,
+                                        q_offset)
         return _k.flash_attention_fwd(q, k, v, causal=causal, window=window,
                                       cap=cap, scale=scale, q_offset=q_offset)
     return _ref.flash_attention_ref(q, k, v, causal=causal, window=window,

@@ -3,7 +3,9 @@
 :func:`moe_dispatch` replaces
 ``src/repro/kernels/moe_dispatch/kernel.py::dispatch_pallas``, and
 :func:`moe_combine` (one routing slot) and :func:`moe_combine_slots` (all k
-slots of the layer, one launch) replace ``::combine_pallas``.  Each wrapper
+slots of the layer, one launch) replace ``::combine_pallas``.
+:func:`moe_combine_weight_grad` is the combine's routing-weight gradient
+for training's backward (the reference differentiates its einsums).  Each wrapper
 checks the device, dtype and shape of its inputs (and the contiguity of x
 and buf) and raises on anything the kernel does not take, allocates the
 output with ``torch.empty`` (the dispatch can add into a buffer it is
@@ -27,7 +29,8 @@ import torch
 from ...device import (count_launch, device_guard, kernel_library,
                        stream_handle)
 
-__all__ = ["moe_dispatch", "moe_combine", "moe_combine_slots"]
+__all__ = ["moe_dispatch", "moe_combine", "moe_combine_slots",
+           "moe_combine_weight_grad"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _INDEX = {torch.int32: 0, torch.int64: 1}
@@ -51,6 +54,9 @@ def _lib() -> ctypes.CDLL:
         lib.repro_moe_combine.argtypes = [p, i, i, i, i, p, ll, ll, i, p,
                                           ll, ll, i, p, ll, ll, ll, i, p, p]
         lib.repro_moe_combine.restype = ctypes.c_int
+        lib.repro_moe_combine_weight_grad.argtypes = [
+            p, p, i, i, i, i, p, ll, ll, i, p, ll, ll, i, ll, i, p, p]
+        lib.repro_moe_combine_weight_grad.restype = ctypes.c_int
         lib.repro_moe_error_string.argtypes = [i]
         lib.repro_moe_error_string.restype = ctypes.c_char_p
         lib._repro_bound = True
@@ -201,3 +207,49 @@ def moe_combine_slots(buf: torch.Tensor, topk_idx: torch.Tensor,
     _raise(lib, rc, "moe_combine")
     count_launch("moe_combine")
     return y
+
+
+def moe_combine_weight_grad(dy: torch.Tensor, buf: torch.Tensor,
+                            topk_idx: torch.Tensor,
+                            slot: torch.Tensor) -> torch.Tensor:
+    """dy ``[T, d]`` and buf ``[E, C, d]`` (contiguous, one dtype, float32
+    or bfloat16); topk_idx/slot ``[T, k]`` int32 or int64 at any strides →
+    dw ``[T, k]`` float32: ``dw[t, j] = Σ_d dy[t, d] · buf[e_tj, s_tj,
+    d]`` summed in float32, +0.0 for a dropped assignment.  One launch."""
+    _check(buf, "buf", 3, tuple(_DTYPES))
+    _check(dy, "dy", 2, (buf.dtype,))
+    E, C, d = buf.shape
+    dev = buf.device
+    if not isinstance(topk_idx, torch.Tensor) or topk_idx.dim() != 2:
+        raise ValueError("topk_idx: expected a [T, k] tensor")
+    T, k = topk_idx.shape
+    if tuple(dy.shape) != (T, d) or dy.device != dev:
+        raise ValueError(f"dy: expected ({T}, {d}) on {dev}, got "
+                         f"{tuple(dy.shape)} on {dy.device}")
+    for t, what in ((topk_idx, "topk_idx"), (slot, "slot")):
+        if not isinstance(t, torch.Tensor) or t.device != dev:
+            raise ValueError(f"{what}: expected a tensor on {dev}")
+        if tuple(t.shape) != (T, k):
+            raise ValueError(f"{what}: expected ({T}, {k}), got "
+                             f"{tuple(t.shape)}")
+        if t.dtype not in _INDEX:
+            raise TypeError(f"{what}: expected int32 or int64, got {t.dtype}")
+    if k < 1:
+        raise ValueError("expected at least one routing slot")
+    if d > _INT_MAX or E * C > _INT_MAX:
+        raise ValueError("sizes do not fit the kernel's int32 indices")
+    dw = torch.empty((T, k), dtype=torch.float32, device=dev)
+    if T == 0:
+        return dw
+    if d == 0:
+        return dw.zero_()
+    lib = _lib()
+    with device_guard(dev):
+        rc = lib.repro_moe_combine_weight_grad(
+            dy.data_ptr(), buf.data_ptr(), E, C, d, k, topk_idx.data_ptr(),
+            *topk_idx.stride(), _INDEX[topk_idx.dtype], slot.data_ptr(),
+            *slot.stride(), _INDEX[slot.dtype], T, _DTYPES[buf.dtype],
+            dw.data_ptr(), stream_handle(dev))
+    _raise(lib, rc, "moe_combine_weight_grad")
+    count_launch("moe_combine_weight_grad")
+    return dw

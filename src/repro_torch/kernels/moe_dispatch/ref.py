@@ -12,6 +12,10 @@ Assignments outside ``[0, E) x [0, C)`` are dropped.
 The wrappers in :mod:`.ops` take them for CPU tensors; the tests and
 ``chip_smoke.py`` hold the kernels against them on the card.
 
+:func:`combine_weight_grad_ref` is the plain version of the routing-weight
+gradient kernel: ``dw[t, j] = Σ_d dy[t, d] · buf[e_tj, s_tj, d]`` in
+float32, +0.0 for a dropped assignment.
+
 :func:`dispatch_onehot_ref` is the one-hot oracle of
 ``src/repro/kernels/moe_dispatch/ref.py``.
 """
@@ -21,7 +25,7 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["dispatch_ref", "combine_ref", "combine_slots_ref",
-           "dispatch_onehot_ref"]
+           "combine_weight_grad_ref", "dispatch_onehot_ref"]
 
 
 def _rows(eidx, slot, E: int, C: int):
@@ -78,6 +82,18 @@ def combine_slots_ref(buf: torch.Tensor, topk_idx: torch.Tensor,
         c = combine_ref(buf, topk_idx[:, j], slot[:, j], topk_w[:, j])
         y = c if y is None else y + c
     return y
+
+
+def combine_weight_grad_ref(dy: torch.Tensor, buf: torch.Tensor,
+                            topk_idx: torch.Tensor,
+                            slot: torch.Tensor) -> torch.Tensor:
+    """dy ``[T, d]``; buf ``[E, C, d]``; topk_idx/slot ``[T, k]`` → dw
+    ``[T, k]`` float32."""
+    E, C, d = buf.shape
+    row, keep = _rows(topk_idx, slot, E, C)                   # [T, k]
+    rows = buf.reshape(E * C, d)[torch.where(keep, row, 0)].float()
+    dw = torch.einsum("td,tkd->tk", dy.float(), rows)
+    return torch.where(keep, dw, 0.0)
 
 
 def dispatch_onehot_ref(x, eidx, slot, num_experts: int, capacity: int):

@@ -1,10 +1,11 @@
-"""The reference's parameter tree → the port's.
+"""The reference's parameter tree → the port's, and back.
 
 :func:`params_from_numpy` takes the reference model's params pytree with
 numpy leaves (``jax.device_get(params)`` in the tests) and returns the
 port's nested dict of tensors with the same keys and layouts, so that both
-packages compute the same function.  Nothing here imports JAX: the tree
-arrives as plain dicts of numpy arrays.
+packages compute the same function.  :func:`params_to_numpy` is its
+inverse: the port's tree with numpy leaves, for checkpoints and tests.
+Nothing here imports JAX: the tree arrives as plain dicts of numpy arrays.
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ import torch
 
 from ..device import resolve_device
 
-__all__ = ["params_from_numpy"]
+__all__ = ["params_from_numpy", "params_to_numpy"]
 
 
 def _leaf(arr, device: torch.device, dtype: Optional[torch.dtype]):
@@ -44,3 +45,20 @@ def params_from_numpy(tree, device=None, dtype: Optional[torch.dtype] = None):
         return _leaf(node, dev, dtype)
 
     return walk(tree)
+
+
+def params_to_numpy(tree):
+    """The inverse of :func:`params_from_numpy`: a nested dict (or
+    list/tuple) of tensors → the same structure of numpy arrays on the
+    host, bfloat16 as float32 (numpy has no bfloat16); anything that is
+    not a tensor is left as it is."""
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(params_to_numpy(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        t = tree.detach()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        return t.cpu().numpy()
+    return tree

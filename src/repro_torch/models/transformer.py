@@ -7,9 +7,15 @@ parameters stay stacked on a leading period axis, as in the reference, and
 the ``lax.scan`` over periods is a Python loop that indexes that axis.
 
 Three entry points share the block code:
-  * ``forward``      — logits (+ MoE aux loss)
+  * ``forward``      — logits (+ MoE aux loss); ``remat=True`` recomputes
+    each period in the backward (``torch.utils.checkpoint``), as the
+    reference's ``jax.checkpoint`` over the scanned body does
   * ``prefill``      — forward that also returns a decode cache
   * ``decode_step``  — one-token step against a preallocated cache
+
+Training takes ``hidden_forward`` and ``chunked_softmax_xent``: the head,
+the logsumexp and the gold logit per sequence chunk, each chunk recomputed
+in the backward, so the ``[B, S, V]`` logits never exist.
 
 The cache is a nested dict like the reference's, with ``"pos"`` a Python
 int: ``{"k", "v"}`` for a GQA slot, ``{"ckv"}`` (the compressed latent
@@ -21,10 +27,13 @@ place, and returns the same dict with ``pos`` advanced.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
@@ -37,7 +46,8 @@ from .mamba2 import init_mamba2, mamba2_decode, mamba2_forward
 from .moe import init_moe, moe_forward
 
 __all__ = ["init_model", "forward", "prefill", "decode_step", "init_cache",
-           "cross_entropy_loss", "model_input_dtypes"]
+           "cross_entropy_loss", "model_input_dtypes", "hidden_forward",
+           "chunked_softmax_xent"]
 
 
 # ---------------------------------------------------------------------------
@@ -213,15 +223,35 @@ def _head(params, cfg: ArchConfig, x):
 
 
 # ---------------------------------------------------------------------------
-# forward (eval / prefill)
+# forward (train / eval / prefill)
 # ---------------------------------------------------------------------------
+
+#: ``remat_policy="dots"`` keeps the matrix products' outputs and
+#: recomputes the rest, as ``dots_with_no_batch_dims_saveable`` does
+_DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+            torch.ops.aten.bmm.default)
+
+
+def _remat(fn, remat_policy: str, *args):
+    """``fn(*args)`` recomputed in the backward instead of saved."""
+    if remat_policy == "dots":
+        ctx = functools.partial(create_selective_checkpoint_contexts,
+                                list(_DOT_OPS))
+        return checkpoint(fn, *args, use_reentrant=False, context_fn=ctx)
+    if remat_policy != "full":
+        raise ValueError(f"remat_policy {remat_policy!r}: full or dots")
+    return checkpoint(fn, *args, use_reentrant=False)
+
 
 def forward(params, cfg: ArchConfig, batch, *, collect_cache: bool = False,
             moe_dispatch: str = "auto", moe_budget: int = 2 << 30,
-            moe_token_chunk: int = 32_768, q_chunk: int = 256,
+            moe_token_chunk: int = 32_768, remat: bool = False,
+            remat_policy: str = "full", q_chunk: int = 256,
             kv_chunk: int = 1024, return_hidden: bool = False):
     """batch: {"tokens": [B,S]} | {"features": [B,S,d]} (+ "positions" for
-    M-RoPE).  Returns (logits [B,S,V], aux_loss, cache|None)."""
+    M-RoPE).  Returns (logits [B,S,V], aux_loss, cache|None).  With
+    ``remat`` each period's activations are recomputed in the backward
+    (``remat_policy`` "full", or "dots" to keep the matrix products)."""
     x = _embed(params, cfg, batch)
     B, S = x.shape[0], x.shape[1]
     sin, cos = _rope_tables(cfg, batch, S, x.device)
@@ -241,14 +271,27 @@ def forward(params, cfg: ArchConfig, batch, *, collect_cache: bool = False,
     block_cache = None
     if cfg.num_periods:
         entries = {f"s{i}": [] for i in range(cfg.period)}
-        for n in range(cfg.num_periods):
+
+        def period_body(n, x, aux_acc):
             period_params = _period(params["blocks"], n)
+            out = {}
             for i, spec in enumerate(cfg.pattern):
-                x, entry, aux = _apply_slot(period_params[f"s{i}"], cfg,
-                                            spec, x, sin, cos, **apply_kw)
-                aux_total = aux_total + aux
-                if collect_cache:
-                    entries[f"s{i}"].append(entry)
+                x, out[f"s{i}"], aux = _apply_slot(
+                    period_params[f"s{i}"], cfg, spec, x, sin, cos,
+                    **apply_kw)
+                aux_acc = aux_acc + aux
+            return x, aux_acc, out
+
+        for n in range(cfg.num_periods):
+            if remat:
+                x, aux_total, out = _remat(
+                    functools.partial(period_body, n), remat_policy, x,
+                    aux_total)
+            else:
+                x, aux_total, out = period_body(n, x, aux_total)
+            if collect_cache:
+                for slot, entry in out.items():
+                    entries[slot].append(entry)
         if collect_cache:
             block_cache = {
                 slot: {name: torch.stack([e[name] for e in per])
@@ -269,6 +312,44 @@ def prefill(params, cfg: ArchConfig, batch, **kw):
                                return_hidden=True, **kw)
     logits = _head(params, cfg, hidden[:, -1:, :])
     return logits[:, 0, :], cache
+
+
+def hidden_forward(params, cfg: ArchConfig, batch, **kw):
+    """Forward WITHOUT the head: returns (hidden [B,S,d], aux_loss).
+    Training takes this and :func:`chunked_softmax_xent`, so the
+    ``[B, S, V]`` logits never exist."""
+    hidden, aux, _ = forward(params, cfg, batch, return_hidden=True, **kw)
+    return hidden, aux
+
+
+def chunked_softmax_xent(params, cfg: ArchConfig, hidden, labels, *,
+                         chunk: int = 512):
+    """Mean cross entropy over sequence chunks (labels < 0 masked): the
+    head, the logsumexp and the gold logit of one chunk at a time, each
+    chunk recomputed in the backward (``torch.utils.checkpoint``), so the
+    peak is ``B · chunk · V`` logits instead of ``B · S · V``.  The
+    chunks' sums are added in order from 0, as the reference's scan adds
+    them."""
+    B, S, _ = hidden.shape
+    chunk = min(chunk, S)
+    if S % chunk:
+        raise ValueError(f"sequence {S} is not a multiple of chunk {chunk}")
+
+    def chunk_nll(xc, lc):
+        logits = _head(params, cfg, xc)
+        mask = (lc >= 0).float()
+        lf = logits.float()
+        lse = torch.logsumexp(lf, dim=-1)
+        gold = torch.gather(lf, -1, torch.clamp_min(lc.long(), 0)[..., None])
+        return ((lse - gold[..., 0]) * mask).sum(), mask.sum()
+
+    nll = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c0 in range(0, S, chunk):
+        n, c = checkpoint(chunk_nll, hidden[:, c0:c0 + chunk],
+                          labels[:, c0:c0 + chunk], use_reentrant=False)
+        nll, cnt = nll + n, cnt + c
+    return nll / torch.clamp_min(cnt, 1.0)
 
 
 # ---------------------------------------------------------------------------

@@ -1226,3 +1226,170 @@ def test_smoke_prefill_and_generate_on_card_match_cpu(dev, arch):
 def _tree_to(tree, dev):
     return {k: (_tree_to(v, dev) if isinstance(v, dict) else v.to(dev))
             for k, v in tree.items()}
+
+
+# ---------------------------------------------------------------------------
+# training: the backward kernels and gradients on the card
+# ---------------------------------------------------------------------------
+
+#: (B, Sq, Sk, H, KH, D, Dv, causal, window, cap, q_offset)
+_BWD_CASES = [
+    (2, 64, 64, 4, 2, 16, 16, True, None, None, 0),
+    (2, 100, 70, 8, 2, 64, 64, True, None, None, 30),
+    (1, 77, 130, 4, 4, 192, 128, True, None, None, 53),    # MLA's widths
+    (2, 96, 48, 8, 2, 32, 32, True, 9, 30.0, 20),          # rows see no key
+    (2, 80, 90, 4, 1, 128, 128, False, 7, None, 3),
+    (1, 64, 40, 4, 2, 256, 256, False, None, 50.0, 0),
+    (2, 256, 256, 32, 8, 128, 128, True, None, None, 0),   # Phi's heads
+]
+
+
+@pytest.mark.parametrize("case", _BWD_CASES)
+def test_flash_attention_lse_and_backward_match_plain_versions(dev, case):
+    """The float32 forward's logsumexp (+inf on the same rows) within 2e-5
+    and its output within 2e-5 (3xTF32), and ``flash_attention_bwd_f32``'s
+    dq, dk, dv within 1e-4 of the plain version's largest magnitude."""
+    from repro_torch.kernels.flash_attention import kernel, ref
+
+    B, Sq, Sk, H, KH, D, Dv, causal, window, cap, q_offset = case
+    g = torch.Generator().manual_seed(0)
+    q, k, v, do = [torch.randn(s, generator=g).to(dev) for s in
+                   ((B, Sq, H, D), (B, Sk, KH, D), (B, Sk, KH, Dv),
+                    (B, Sq, H, Dv))]
+    opts = dict(causal=causal, window=window, cap=cap, scale=D ** -0.5,
+                q_offset=q_offset)
+    out, lse = kernel.flash_attention_fwd(q, k, v, return_lse=True, **opts)
+    r_out, r_lse = ref.flash_attention_ref(q, k, v, return_lse=True, **opts)
+    fin = torch.isfinite(r_lse)
+    assert torch.equal(torch.isfinite(lse), fin)
+    torch.testing.assert_close(lse[fin], r_lse[fin], rtol=0, atol=2e-5)
+    torch.testing.assert_close(out, r_out, rtol=0, atol=2e-5)
+    got = kernel.flash_attention_bwd(q, k, v, out, lse, do, **opts)
+    want = ref.flash_attention_bwd_ref(q, k, v, r_out, r_lse, do, **opts)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-4 * float(b.abs().max()))
+
+
+def test_combine_weight_grad_matches_plain_version(dev):
+    """At the training shape's routing (T 8192, k 2, E 16, C 1280, a
+    fifth of the slots dropped), float32 and bf16: within 1e-5 of the
+    largest magnitude (float32 sums in another order)."""
+    from repro_torch.kernels.moe_dispatch import kernel, ref
+
+    g = torch.Generator().manual_seed(1)
+    T, k, d, E, C = 8192, 2, 4096, 16, 1280
+    idx = torch.randint(0, E, (T, k), generator=g).to(dev)
+    slot = torch.randint(0, C + C // 4, (T, k), generator=g).to(dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        buf = torch.randn(E, C, d, generator=g).to(dev, dtype)
+        dy = torch.randn(T, d, generator=g).to(dev, dtype)
+        got = kernel.moe_combine_weight_grad(dy, buf, idx, slot)
+        want = ref.combine_weight_grad_ref(dy, buf, idx, slot)
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-5 * float(want.abs().max()))
+        assert (got[slot >= C] == 0).all()
+
+
+def test_moe_slot_functions_on_card_match_cpu(dev):
+    """``DispatchSlots``/``CombineSlots`` over the kernels: the forward
+    and dx, dbuf, dtopk_w equal to the CPU's plain versions."""
+    from repro_torch.kernels.moe_dispatch import ops
+
+    rng = np.random.default_rng(2)
+    T, k, E, C, d = 300, 2, 8, 64, 96
+    idx = torch.from_numpy(np.stack([rng.permutation(E)[:k]
+                                     for _ in range(T)]))
+    x = torch.from_numpy(rng.normal(size=(T, d)).astype(np.float32))
+    w = torch.from_numpy(rng.random((T, k)).astype(np.float32))
+    gy = torch.from_numpy(rng.normal(size=(T, d)).astype(np.float32))
+    out = {}
+    for where in (dev, torch.device("cpu")):
+        xi, wi = (x.to(where).requires_grad_(True),
+                  w.to(where).requires_grad_(True))
+        ii = idx.to(where)
+        slot = ops.expert_slots(ii, E)
+        buf = ops.DispatchSlots.apply(xi, ii, slot, E, C)
+        y = ops.CombineSlots.apply(buf * 2.0, ii, slot, wi)
+        (y * gy.to(where)).sum().backward()
+        out[where.type] = [t.detach().cpu() for t in (y, xi.grad, wi.grad)]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b",
+                                  "deepseek-v2-lite-16b"])
+def test_train_gradients_on_card_match_cpu(dev, arch):
+    """The training loss's backward on the card (flash attention's
+    backward kernel, the MoE's dispatch/combine backward) sets every
+    parameter's ``.grad``, equal to the CPU's within rtol 1e-4 and 1e-5 of
+    the leaf's largest magnitude (the CPU parity tolerance)."""
+    from repro_torch import device as D
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_model
+    from repro_torch.train.optimizer import adamw
+    from repro_torch.train.trainer import TrainPolicy, make_train_step
+    from repro_torch.train.tree import tree_leaves, tree_paths
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config(arch)
+    params_cpu = init_model(torch.Generator().manual_seed(0), cfg,
+                            device="cpu")
+    params = _tree_to(params_cpu, dev)
+    for p in tree_leaves(params_cpu) + tree_leaves(params):
+        p.requires_grad_(True)
+    rng = np.random.default_rng(3)
+    toks = rng.integers(0, cfg.vocab_size, (2, 32)).astype(np.int32)
+    labels = rng.integers(0, cfg.vocab_size, (2, 32)).astype(np.int32)
+    step = make_train_step(cfg, adamw(), TrainPolicy())
+    D.reset_launch_counts()
+    metrics = {}
+    for where, p in (("cuda", params), ("cpu", params_cpu)):
+        batch = {"tokens": torch.from_numpy(toks).to(where),
+                 "labels": torch.from_numpy(labels).to(where)}
+        opt = adamw()
+        _, _, metrics[where] = step(p, opt.init(p), batch)
+    counts = D.launch_counts()
+    for name in ("flash_attention_f32", "flash_attention_bwd_f32",
+                 "moe_dispatch", "moe_combine", "moe_combine_weight_grad"):
+        assert counts[name] > 0, (name, counts)
+    torch.testing.assert_close(metrics["cuda"]["loss"].cpu(),
+                               metrics["cpu"]["loss"], rtol=1e-5, atol=0)
+    for (path, a), (_, b) in zip(tree_paths(params),
+                                 tree_paths(params_cpu)):
+        assert a.grad is not None, path
+        scale = float(b.grad.abs().max())
+        torch.testing.assert_close(a.grad.cpu(), b.grad, rtol=1e-4,
+                                   atol=1e-5 * scale, msg=str(path))
+
+
+def test_bf16_attention_that_needs_a_gradient_raises(dev):
+    """No bf16 backward yet: the call raises in the forward, naming the
+    ROADMAP item; under ``torch.no_grad()`` (serving) it runs."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+
+    q = torch.randn(1, 32, 4, 64, device=dev, dtype=torch.bfloat16)
+    k = torch.randn(1, 32, 2, 64, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        flash_attention(q.requires_grad_(True), k, k)
+    with torch.no_grad():
+        assert flash_attention(q, k, k).shape == (1, 32, 4, 64)
+
+
+def test_launch_train_on_card(dev, tmp_path):
+    """``launch.train --device cuda --smoke``: the pipeline's join and
+    sort and the train step on the card, then a resume from step 2 with
+    the uninterrupted run's losses (within 1e-6: the card's atomics sum
+    the embedding's gradient in any order)."""
+    from repro_torch.launch import train
+
+    args = ["--device", "cuda", "--smoke", "--arch", "phi3.5-moe-42b-a6.6b",
+            "--seq-len", "32", "--batch", "2"]
+    whole = train.main(args + ["--steps", "4"])
+    ckpt = ["--ckpt-dir", str(tmp_path), "--ckpt-interval", "2"]
+    train.main(args + ckpt + ["--steps", "2"])
+    resumed = train.main(args + ckpt + ["--steps", "4"])
+    assert resumed["start"] == 2
+    for s in (2, 3):
+        assert resumed["losses"][s] == pytest.approx(whole["losses"][s],
+                                                     rel=1e-6)

@@ -54,7 +54,10 @@ def test_every_module_imports_with_jax_blocked():
     "repro_torch.launch.serve", "repro_torch.configs",
     "repro_torch.distributed.sharding", "repro_torch.core.partition",
     "repro_torch.models.mamba2", "repro_torch.serving.kv_quant",
-    "repro_torch.roofline"])
+    "repro_torch.roofline", "repro_torch.train.optimizer",
+    "repro_torch.train.trainer", "repro_torch.train.checkpoint",
+    "repro_torch.train.compression", "repro_torch.train.fault_tolerance",
+    "repro_torch.data.pipeline", "repro_torch.launch.train"])
 def test_serving_and_sort_modules_stand_alone(module):
     """The serving layer and the sort kernel's package load with JAX
     blocked and pull in nothing of JAX or the reference."""
@@ -97,7 +100,8 @@ def test_session_without_cuda_raises(monkeypatch):
 
 def test_lm_entry_points_without_cuda_raise(monkeypatch):
     from repro_torch.configs import get_smoke_config
-    from repro_torch.launch import serve
+    from repro_torch.data.pipeline import PipelineConfig, prepare_order
+    from repro_torch.launch import serve, train
     from repro_torch.models import init_cache, init_model
     from repro_torch.models.interop import params_from_numpy
     from repro_torch.serving.engine import BatchScheduler
@@ -108,7 +112,9 @@ def test_lm_entry_points_without_cuda_raise(monkeypatch):
     for call in (lambda: init_model(gen, cfg), lambda: init_cache(cfg, 1, 4),
                  lambda: BatchScheduler(4),
                  lambda: params_from_numpy({"w": np.zeros(2)}),
-                 lambda: serve.main(["--smoke"])):
+                 lambda: serve.main(["--smoke"]),
+                 lambda: train.main(["--smoke", "--steps", "1"]),
+                 lambda: prepare_order(PipelineConfig(num_docs=100))):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
 
