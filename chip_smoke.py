@@ -352,7 +352,8 @@ def device_events(prof) -> list:
 TRACE_TRIES = 8
 
 
-def device_ms_per_call(fn, kernel_name, calls: int = DECODE_CALLS):
+def device_ms_per_call(fn, kernel_name, calls: int = DECODE_CALLS,
+                       by_name: Optional[dict] = None):
     """The device time of one call of ``fn`` and the kernels it launches:
     torch.profiler's kernel times over ``calls`` calls issued back to back,
     divided by ``calls`` (CUDA events around them would time the host's
@@ -362,7 +363,11 @@ def device_ms_per_call(fn, kernel_name, calls: int = DECODE_CALLS):
     or in part, agrees with no other); the two traces' mean is returned.
     Fails after ``TRACE_TRIES`` traces without two that agree.  A session
     of many events may drop its first one or two in every trace, so a
-    count a call can read a little short (0.99 of 1 over 200 calls)."""
+    count a call can read a little short (0.99 of 1 over 200 calls).
+    ``by_name``, where given, receives for each device event name (a
+    kernel's full name, template arguments and all) its mean time a launch
+    over the two traces: a trace that drops a call's first events, as the
+    card's profiler does now and then, leaves that mean as it is."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -370,7 +375,7 @@ def device_ms_per_call(fn, kernel_name, calls: int = DECODE_CALLS):
 
     fn()
     torch.cuda.synchronize()
-    seen = {}
+    seen, seen_names = {}, {}
     for _ in range(TRACE_TRIES):
         before = D.launch_counts()
         with profile(activities=[ProfilerActivity.CPU,
@@ -385,10 +390,20 @@ def device_ms_per_call(fn, kernel_name, calls: int = DECODE_CALLS):
         kernels = device_events(prof)
         total_us = sum(ev.device_time_total for ev in kernels)
         n = len(kernels)
+        names = {}  # name -> (us, launches)
+        for ev in kernels:
+            us, c = names.get(ev.name, (0.0, 0))
+            names[ev.name] = (us + ev.device_time_total, c + 1)
         if n and total_us > 0:
             if n in seen:
+                if by_name is not None:
+                    for k in set(names) | set(seen_names[n]):
+                        us, c = names.get(k, (0.0, 0))
+                        us2, c2 = seen_names[n].get(k, (0.0, 0))
+                        by_name[k] = (us + us2) / (c + c2) / 1e3
                 return (seen[n] + total_us) / 2 / calls / 1e3, n / calls
             seen[n] = total_us
+            seen_names[n] = names
         if len(seen) != 1 or n not in seen:
             print(f"profiler trace: {n} device events over {calls} calls "
                   f"against {sorted(seen)}, traced again", flush=True)
@@ -1007,11 +1022,22 @@ def lm_kernel_phase(dev, seed: int):
                                       f"{dtype}")
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
 
-            def library():
-                return F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True, scale=scale,
-                    enable_gqa=H != KH)
-
+            # with grouped heads SDPA is timed twice, as it comes
+            # (enable_gqa) and with K/V repeated to H heads, as row 6b-lse
+            # calls it: the two may take different backends, and the
+            # faster is the yardstick
+            calls = {"enable_gqa": lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, scale=scale,
+                enable_gqa=H != KH)}
+            if H != KH:
+                kr, vr = (t.repeat_interleave(H // KH, dim=1)
+                          for t in (kt, vt))
+                calls["K/V repeated"] = (
+                    lambda: F.scaled_dot_product_attention(
+                        qt, kr, vr, is_causal=True, scale=scale))
+            lib_ms = {how: time_ms(fn) for how, fn in calls.items()}
+            lib_how = min(lib_ms, key=lib_ms.get)
+            library = calls[lib_how]
             lib_err = float((library().transpose(1, 2).float()
                              - want.float()).abs().max())
             t_b, by = bound(q.element_size() * (q.numel() + k.numel()
@@ -1025,12 +1051,16 @@ def lm_kernel_phase(dev, seed: int):
                          "plain_ms": time_ms(lambda: FR.flash_attention_ref(
                              q, k, v, causal=True, scale=scale)),
                          "bound_ms": t_b, "bound_by": by,
-                         "library_ms": time_ms(library),
+                         "library_ms": lib_ms[lib_how],
+                         "library_ms_by_call": lib_ms,
                          "shape": f"B={B}, S={S}, H={H}, KH={KH}, D={Dh}, "
-                                  f"Dv={Dv}, {dtype}, causal (SDPA differs "
-                                  f"from the plain version by "
-                                  f"{lib_err:.3g})"})
-            del qt, kt, vt, got, want
+                                  f"Dv={Dv}, {dtype}, causal (library: SDPA "
+                                  f"with {lib_how}, the faster of "
+                                  f"{len(lib_ms)}; it differs from the "
+                                  f"plain version by {lib_err:.3g})"})
+            del qt, kt, vt, got, want, library, calls
+            if H != KH:
+                del kr, vr
         del q, k, v
     # check only: Gemma-2's heads (16 query, 8 kv, head dim 256) with a
     # window and the tanh soft-cap, cut to 1024 tokens (window 512 so
@@ -1219,7 +1249,9 @@ def train_kernel_phase(dev, seed: int):
     and ``moe_combine_weight_grad`` over a real top-2 routing of 8192
     tokens (E 16, C 1280, d 4096, float32; within ``WGRAD_TOL``).  The
     backward's bound counts five products (S, dP, dV, dK, dQ: 2.5 times
-    the forward's flops) at the rate row 6b uses."""
+    the forward's flops) at the rate row 6b uses; its row also carries the
+    device time of each of its kernels (``delta_kernel``, the dK/dV pass
+    ``dkdv_kernel`` and the dQ pass ``dq_kernel``), from profiler traces."""
     import torch
     import torch.nn.functional as F
 
@@ -1302,12 +1334,29 @@ def train_kernel_phase(dev, seed: int):
                     2 * (3 * Dh + 2 * Dh) * pairs, f32_rate)
     plain_ms = time_ms(lambda: FR.flash_attention_bwd_ref(
         q, k, v, out, lse, do, causal=True, scale=scale), 3)
+    # the device time of each of the backward's kernels (its passes; each
+    # launches once a call), and their sum
+    by_name = {}
+    device_ms_per_call(bwd, FK.BWD_KERNEL, 5, by_name)
+    passes = {}
+    for what in ("delta_kernel", "dkdv_kernel", "dq_kernel"):
+        hits = [ms for name, ms in by_name.items() if what in name]
+        if len(hits) != 1:
+            fail(f"flash_attention_bwd_f32: {len(hits)} traced kernels "
+                 f"named {what} ({sorted(by_name)})")
+        passes[what] = hits[0]
+    bwd_device_ms = sum(passes.values())
+    print(f"flash_attention_bwd_f32 device time {bwd_device_ms:.4f} ms a "
+          f"call: " + ", ".join(f"{k} {v:.4f}" for k, v in passes.items())
+          + f" ({sorted(by_name)})", flush=True)
     rows.append({"name": FK.BWD_KERNEL, "at": TRAIN_AT, "route": "cuda",
                  "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
                  "replaces": "src/repro/kernels/flash_attention/kernel.py:70",
                  "max_abs_err": max(errs), "ms": time_ms(bwd, 10),
                  "plain_ms": plain_ms, "bound_ms": t_b, "bound_by": by,
                  "library_ms": time_ms(sdpa_fwd_bwd, 5) - sdpa_fwd_ms,
+                 "device_ms": bwd_device_ms, "pass_device_ms": passes,
+                 "err_of_largest": worst,
                  "shape": f"{shape}; library: SDPA forward + backward "
                           f"minus its forward, K/V repeated to {H} heads"})
     del q, k, v, do, out, lse, qt, kt, vt, dot, kr, vr, leaves

@@ -58,7 +58,7 @@ LAUNCHES: Dict[str, int] = {
     "radix_sort_pass": 0,
     "flash_attention": 0,        # bfloat16, tensor cores (wgmma)
     "flash_attention_f32": 0,    # float32, tensor cores in 3xTF32
-    "flash_attention_bwd_f32": 0,  # its backward, float32 SIMT
+    "flash_attention_bwd_f32": 0,  # its backward, float32 (3xTF32)
     "moe_dispatch": 0,
     "moe_combine": 0,
     "moe_combine_weight_grad": 0,  # the combine's routing-weight gradient

@@ -20,9 +20,12 @@ strides, so no transpose is made.  Two kernels serve it, chosen by dtype in
 With ``return_lse=True`` (the training path; float32 only) the float32
 kernel also writes each row's logsumexp ``[B, H, Sq]`` (+inf for a row
 with no visible key), which :func:`flash_attention_bwd` reads:
-``csrc/flash_attention_bwd.cu``, SIMT float32 (launch counter
-``flash_attention_bwd_f32``, one a call for its three kernels), whose
-``dq``, ``dk``, ``dv`` come back contiguous in q's, k's and v's layouts.
+``csrc/flash_attention_bwd.cu``, every product on the tensor cores
+(``mma.sync`` TF32 in the 3xTF32 split), dK/dV per key tile summed over
+the GQA group and dQ per query tile, no atomics, so the same bits on every
+run (launch counter ``flash_attention_bwd_f32``, one a call for its three
+kernels), whose ``dq``, ``dk``, ``dv`` come back contiguous in q's, k's
+and v's layouts.
 
 What neither kernel takes raises ``ValueError``; nothing falls back to the
 other kernel or to the plain version.  The wrapper allocates the output with

@@ -17,7 +17,8 @@ Gradients.  On the CPU autograd runs through the plain version.  On the
 card, a call that needs a gradient (grad mode on and q, k or v requiring
 one) goes through :class:`FlashAttention`, an ``autograd.Function`` whose
 forward is the float32 kernel writing each row's logsumexp and whose
-backward is the backward kernel (``csrc/flash_attention_bwd.cu``).  A
+backward is the backward kernel (``csrc/flash_attention_bwd.cu``: the
+3xTF32 split on the tensor cores, no atomics, the same bits every run).  A
 bfloat16 call that needs a gradient raises ``NotImplementedError``: the
 bf16 kernel writes no logsumexp yet (ROADMAP Queue 2 item 14).  A call
 that needs none (serving, under ``torch.no_grad()``) launches the forward

@@ -1241,7 +1241,33 @@ _BWD_CASES = [
     (2, 80, 90, 4, 1, 128, 128, False, 7, None, 3),
     (1, 64, 40, 4, 2, 256, 256, False, None, 50.0, 0),
     (2, 256, 256, 32, 8, 128, 128, True, None, None, 0),   # Phi's heads
+    # widths and lengths that the m16n8k8 fragments and the tiles do not
+    # divide: D, Dv not multiples of 8, Sq, Sk not multiples of 16
+    (2, 75, 53, 6, 3, 20, 12, True, 17, 20.0, 9),
+    (1, 37, 141, 4, 2, 20, 12, False, 25, 30.0, 40),
+    (2, 50, 29, 4, 2, 12, 20, True, 6, None, 27),          # rows see no key
+    (1, 133, 131, 6, 2, 44, 36, True, 50, 15.0, 5),
+    (1, 45, 70, 2, 1, 200, 100, True, 33, 25.0, 31),       # two chunks
 ]
+
+
+def _bwd_inputs(case, dev, fused: bool):
+    """q, k, v, dO and the options of a ``_BWD_CASES``-style case; with
+    ``fused``, q, k and v are strided views of one ``[B, S, (H + 2 KH) D]``
+    projection (Sq = Sk, D = Dv)."""
+    B, Sq, Sk, H, KH, D, Dv, causal, window, cap, q_offset = case
+    g = torch.Generator().manual_seed(0)
+    if fused:
+        qkv = torch.randn(B, Sq, (H + 2 * KH) * D, generator=g).to(dev)
+        q, k, v = qkv.split([H * D, KH * D, KH * D], dim=-1)
+        q, k, v = (t.unflatten(-1, (-1, D)) for t in (q, k, v))
+    else:
+        q, k, v = [torch.randn(s, generator=g).to(dev) for s in
+                   ((B, Sq, H, D), (B, Sk, KH, D), (B, Sk, KH, Dv))]
+    do = torch.randn((B, Sq, H, Dv), generator=g).to(dev)
+    opts = dict(causal=causal, window=window, cap=cap, scale=D ** -0.5,
+                q_offset=q_offset)
+    return q, k, v, do, opts
 
 
 @pytest.mark.parametrize("case", _BWD_CASES)
@@ -1251,13 +1277,7 @@ def test_flash_attention_lse_and_backward_match_plain_versions(dev, case):
     dq, dk, dv within 1e-4 of the plain version's largest magnitude."""
     from repro_torch.kernels.flash_attention import kernel, ref
 
-    B, Sq, Sk, H, KH, D, Dv, causal, window, cap, q_offset = case
-    g = torch.Generator().manual_seed(0)
-    q, k, v, do = [torch.randn(s, generator=g).to(dev) for s in
-                   ((B, Sq, H, D), (B, Sk, KH, D), (B, Sk, KH, Dv),
-                    (B, Sq, H, Dv))]
-    opts = dict(causal=causal, window=window, cap=cap, scale=D ** -0.5,
-                q_offset=q_offset)
+    q, k, v, do, opts = _bwd_inputs(case, dev, fused=False)
     out, lse = kernel.flash_attention_fwd(q, k, v, return_lse=True, **opts)
     r_out, r_lse = ref.flash_attention_ref(q, k, v, return_lse=True, **opts)
     fin = torch.isfinite(r_lse)
@@ -1269,6 +1289,43 @@ def test_flash_attention_lse_and_backward_match_plain_versions(dev, case):
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=0,
                                    atol=1e-4 * float(b.abs().max()))
+
+
+@pytest.mark.parametrize("D", [64, 18])
+def test_flash_attention_backward_on_fused_projection_views(dev, D):
+    """q, k, v as strided views of one fused projection (16-byte copies
+    at D 64, 4-byte ones at D 18): dq, dk, dv within 1e-4 of the plain
+    version's largest magnitude."""
+    from repro_torch.kernels.flash_attention import kernel, ref
+
+    case = (2, 77, 77, 8, 2, D, D, True, 40, 30.0, 0)
+    q, k, v, do, opts = _bwd_inputs(case, dev, fused=True)
+    assert not q.is_contiguous() and q.stride(1) == 12 * D
+    out, lse = kernel.flash_attention_fwd(q, k, v, return_lse=True, **opts)
+    got = kernel.flash_attention_bwd(q, k, v, out, lse, do, **opts)
+    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, **opts)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-4 * float(b.abs().max()))
+
+
+@pytest.mark.parametrize("case", [
+    (2, 512, 512, 32, 8, 128, 128, True, None, None, 0),
+    (1, 300, 260, 8, 2, 20, 12, True, 70, 20.0, 13),
+    (1, 96, 96, 4, 2, 256, 256, False, None, 50.0, 0),
+])
+def test_flash_attention_backward_is_deterministic(dev, case):
+    """Two calls on the same inputs give bit-equal dq, dk, dv: the GQA
+    group's heads are summed inside one block, in a fixed order, with no
+    atomics."""
+    from repro_torch.kernels.flash_attention import kernel
+
+    q, k, v, do, opts = _bwd_inputs(case, dev, fused=False)
+    out, lse = kernel.flash_attention_fwd(q, k, v, return_lse=True, **opts)
+    first = kernel.flash_attention_bwd(q, k, v, out, lse, do, **opts)
+    second = kernel.flash_attention_bwd(q, k, v, out, lse, do, **opts)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_combine_weight_grad_matches_plain_version(dev):
