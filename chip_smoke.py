@@ -14,7 +14,7 @@ the probe codes in order and shuffled, then Q-a and Q-b); ``segment-sum``
 (the segment sum's cases at Q-c's shape, then Q-c and Q-e); ``sharded``
 (phase 5b, after the single-device Q-a; with ``--profile``, traces of
 both); ``lm`` (phase 6); ``train`` (phase 2's training rows, then phase
-8).
+8); ``dryrun`` (phase 9).
 
 Phases (any mismatch or exception ends the run with a non-zero exit code):
 
@@ -111,7 +111,21 @@ Phases (any mismatch or exception ends the run with a non-zero exit code):
    checkpoint, a fourth step, a restart from the checkpoint and the fourth
    step again, which must equal the uninterrupted one.  Fails on a loss
    that is not finite, a parameter without a gradient or a third loss not
-   below the first.
+   below the first;
+9. the LM on a mesh (``--only dryrun``): the production dry-run
+   (``repro_torch.launch.dryrun``) of Phi-3.5-MoE x train_4k and
+   DeepSeek-V2-Lite x prefill_32k on the (16, 16) mesh starts in two
+   processes of its own (fake process group, meta tensors, CPU only);
+   meanwhile a process group of one rank over NCCL and
+   ``make_local_mesh(1, 1)`` on the card, phase 8's model laid out by
+   ``param_specs`` (its bytes equal to the dry-run's plan for the same
+   cut on a (1, 1) mesh, the allocated ones apart from the allocator's
+   rounding: 512-byte blocks, a large block keeping its 2 MiB segment's
+   remainder of up to 1 MiB), 2 steps under the mesh through the hand kernels
+   (counters from 0), the group torn down, and the same 2 steps unsharded
+   from the same weights: losses within 1e-6; then each dry-run record
+   (per-device argument and temp GiB, counted flops, useful-flops ratio,
+   dominant roofline term; all predictions) must be ok.
 
 Phase 2 also holds the four LM kernels against their plain versions at
 phase 6's shapes; their ``launches`` come from the phase 6 run of the
@@ -2617,6 +2631,256 @@ def train_calls(dev, seed: int, profile: bool = False) -> dict:
     return {"train": report, "kernels": rows}
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the LM on a mesh: a one-card NCCL mesh, and the production dry-run
+# ---------------------------------------------------------------------------
+
+MESH_STEPS = 2
+#: the production cells the dry-run plans here, each in a process of its
+#: own under the fake process group (it cannot share a process with NCCL)
+DRYRUN_CELLS = (("phi3.5-moe-42b-a6.6b", "train_4k"),
+                ("deepseek-v2-lite-16b", "prefill_32k"))
+DRYRUN_TIMEOUT = 900
+#: the CUDA caching allocator's granule (every block is a multiple of
+#: it), and the largest segment remainder a block above it keeps unsplit
+ALLOC_GRANULE = 512
+ALLOC_UNSPLIT = 1 << 20
+
+# the dry-run's argument bytes for phase 9's cut on a (1, 1) mesh, planned
+# on the meta device in a process of its own
+_PLAN_ARGS = """
+import json, sys, dataclasses, torch
+from repro_torch.configs import get_config
+from repro_torch.configs.shapes import ShapeSpec
+from repro_torch.launch import dryrun as D
+from repro_torch.launch.mesh import make_local_mesh
+arch, layers, batch, seq = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), \
+    int(sys.argv[4])
+cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+with D.fake_group(1):
+    mesh = make_local_mesh(1, 1, device_type="cpu")
+    _, args = D.build_cell(cfg, ShapeSpec("mesh", seq, batch, "train"), mesh,
+                           {"microbatches": 1}, dtype=torch.float32)
+    print(json.dumps(D.argument_bytes(args)))
+"""
+
+
+def _start_dryrun(root: Path, out: Path) -> list:
+    """The production dry-run's cells, one process each, started now so
+    they plan (on the CPU) while the card runs the mesh steps."""
+    env = dict(__import__("os").environ, PYTHONPATH=str(root / "src"))
+    procs = []
+    for arch, shape in DRYRUN_CELLS:
+        procs.append((arch, shape, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", "single", "--out", str(out)],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    return procs
+
+
+def _finish_dryrun(procs, out: Path) -> dict:
+    """Wait for the dry-run's cells (killed at ``DRYRUN_TIMEOUT``), print
+    each record's per-device figures, fail on a record that is not ok."""
+    records = {}
+    for arch, shape, proc in procs:
+        try:
+            log, _ = proc.communicate(timeout=DRYRUN_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            fail(f"dry-run {arch} x {shape}: still running after "
+                 f"{DRYRUN_TIMEOUT} s")
+        path = out / f"{arch}__{shape}__single.json"
+        if proc.returncode != 0 or not path.is_file():
+            fail(f"dry-run {arch} x {shape}: exit {proc.returncode}\n"
+                 f"{log[-3000:]}")
+        r = json.loads(path.read_text())
+        if r["status"] != "ok":
+            fail(f"dry-run {arch} x {shape}: {r['status']} "
+                 f"{r.get('error')}\n{r.get('traceback', '')[-2000:]}")
+        ma, rl = r["memory_analysis"], r["roofline"]
+        print(f"dry-run {arch} x {shape} x single (16 x 16, predictions "
+              f"per device, not measured): arguments "
+              f"{ma['argument_size_in_bytes'] / 2**30:.3f} GiB, temp "
+              f"{ma['temp_size_in_bytes'] / 2**30:.3f} GiB, counted flops "
+              f"{r['dispatch_walk']['flops']:.4g} (model "
+              f"{r['model_flops_per_device']:.4g}, useful ratio "
+              f"{r['useful_flops_ratio']:.4f}), collective bytes "
+              f"{r['dispatch_walk']['collective_bytes']:.4g}; roofline "
+              f"compute {rl['t_compute_s']:.4f} s, memory "
+              f"{rl['t_memory_s']:.4f} s, collective "
+              f"{rl['t_collective_s']:.4f} s: {rl['dominant']}; traced at "
+              f"{r['traced']['periods_microbatches']} (periods, "
+              f"microbatches) in {r['traced']['trace_s']} s", flush=True)
+        records[f"{arch}x{shape}"] = r
+    return records
+
+
+def mesh_phase(seed: int, root: Path):
+    """Phase 9.  The production dry-run's two cells start in their own
+    processes.  Meanwhile, on the card: a process group of one rank over
+    NCCL and ``make_local_mesh(1, 1)``; Phi-3.5-MoE at full width and
+    ``TRAIN_LAYERS`` layers in float32 with AdamW (``TRAIN_LR``), its
+    parameters, AdamW state and batch laid out by ``param_specs`` /
+    ``batch_specs`` as DTensors, whose bytes on the card must equal the
+    dry-run's per-device argument bytes for the same cut on a (1, 1) mesh,
+    each block rounded up to the allocator's ``ALLOC_GRANULE``;
+    ``MESH_STEPS`` steps of ``make_train_step`` under the mesh (counters
+    from 0: the flash-attention forward and backward, dispatch, combine and
+    ``moe_combine_weight_grad`` must launch), then the group torn down and
+    the same steps unsharded from the same weights, whose losses the
+    sharded ones must equal within 1e-6 (relative).  The allocated bytes
+    are the plan's apart from the allocator's rounding: each block a
+    multiple of ``ALLOC_GRANULE``, and a block above ``ALLOC_UNSPLIT``
+    keeping its 2 MiB segment's remainder when that is no larger.  Then the dry-run's
+    records (each must be ok).  Returns (report, launch counts)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import device as D
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import (PartitionSpec,
+                                                  batch_specs,
+                                                  distribute_tree,
+                                                  param_specs)
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import init_model
+    from repro_torch.models.pspec import mesh_scope
+    from repro_torch.train.optimizer import adamw
+    from repro_torch.train.trainer import default_policy, make_train_step
+    from repro_torch.train.tree import tree_leaves
+
+    out = root / "build" / "dryrun_torch"
+    procs = _start_dryrun(root, out)
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config(LM_ARCH), num_layers=TRAIN_LAYERS)
+    plan = subprocess.run(
+        [sys.executable, "-c", _PLAN_ARGS, LM_ARCH, str(TRAIN_LAYERS),
+         str(PREFILL_BATCH), str(PREFILL_LEN)],
+        env=dict(__import__("os").environ, PYTHONPATH=str(root / "src")),
+        capture_output=True, text=True, timeout=600)
+    if plan.returncode != 0:
+        fail(f"mesh: the (1, 1) dry-run plan failed\n{plan.stderr[-3000:]}")
+    planned = json.loads(plan.stdout.strip().splitlines()[-1])
+    rng = np.random.default_rng(seed)
+    batch_np = {k: rng.integers(0, cfg.vocab_size, (PREFILL_BATCH,
+                                                    PREFILL_LEN),
+                                dtype=np.int32) for k in ("tokens", "labels")}
+    opt = adamw(lr=TRAIN_LR)
+    step = make_train_step(cfg, opt, default_policy(cfg))
+    report = {"arch": cfg.name, "layers": cfg.num_layers}
+
+    def fresh():
+        params = init_model(torch.Generator(device=dev).manual_seed(seed),
+                            cfg, torch.float32, device=dev)
+        for p in tree_leaves(params):
+            p.requires_grad_(True)
+        return params, opt.init(params), {
+            k: torch.from_numpy(v).to(dev) for k, v in batch_np.items()}
+
+    def losses_of(params, state, batch, scope):
+        out = []
+        with scope:
+            for i in range(MESH_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, state, m = step(params, state, batch)
+                loss = m["loss"]
+                loss = float(loss.full_tensor() if hasattr(
+                    loss, "full_tensor") else loss)
+                torch.cuda.synchronize()
+                out.append((loss, time.perf_counter() - t0))
+        return out
+
+    import contextlib
+    import shutil
+    import tempfile
+
+    # the group meets through a file (no TCP port another run could take)
+    rdzv = tempfile.mkdtemp(prefix="rdzv")
+    dist.init_process_group("nccl", init_method=f"file://{rdzv}/store",
+                            rank=0, world_size=1,
+                            device_id=torch.device(
+                                "cuda", torch.cuda.current_device()))
+    try:
+        mesh = make_local_mesh(1, 1)
+        # the group's and DTensor's one-time state (the communicator, the
+        # RNG tracker) made before the count starts: none of it is the
+        # model's
+        before = torch.cuda.memory_allocated()
+        distribute_tree(torch.zeros(1, device=dev), mesh, PartitionSpec())
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        print(f"mesh (1, 1): the group's first layout left {base - before} "
+              f"B allocated", flush=True)
+        params, state, batch = fresh()
+        params = distribute_tree(params, mesh, param_specs(params, cfg))
+        state = distribute_tree(state, mesh, param_specs(state, cfg))
+        batch = distribute_tree(batch, mesh, batch_specs(batch, mesh))
+        gc.collect()
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() - base
+        local = [t.to_local() for t in tree_leaves((params, state, batch))]
+        on_card = [t.numel() * t.element_size() for t in local]
+        rounded = sum(-(-n // ALLOC_GRANULE) * ALLOC_GRANULE
+                      for n in planned)
+        # a block above 1 MiB comes from a segment rounded up to 2 MiB and
+        # keeps the segment's remainder when it is 1 MiB or less
+        large = sum(n > ALLOC_UNSPLIT for n in planned)
+        unsplit = held - rounded
+        print(f"mesh (1, 1) over NCCL: {cfg.name} at {cfg.num_layers} "
+              f"layers, float32, AdamW: {len(on_card)} argument tensors, "
+              f"{sum(on_card)} B on the card's shards, the dry-run plans "
+              f"{sum(planned)} B ({len(planned)} tensors); allocated "
+              f"{held} B = the plan + {rounded - sum(planned)} B of "
+              f"rounding to {ALLOC_GRANULE}-byte blocks + {unsplit} B of "
+              f"segment remainders kept unsplit (at most {ALLOC_UNSPLIT} "
+              f"B in each of the {large} blocks above it)", flush=True)
+        if on_card != planned or not 0 <= unsplit <= large * ALLOC_UNSPLIT \
+                or unsplit % ALLOC_GRANULE:
+            fail("mesh: the card's argument bytes differ from the "
+                 "dry-run's plan")
+        del local
+        D.reset_launch_counts()
+        sharded = losses_of(params, state, batch, mesh_scope(mesh))
+        launches = D.launch_counts()
+        del params, state, batch
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(rdzv, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    plain = losses_of(*fresh(), contextlib.nullcontext())
+    gc.collect()
+    torch.cuda.empty_cache()
+    for i, ((ls, ts), (lp, tp)) in enumerate(zip(sharded, plain), 1):
+        print(f"mesh step {i}: loss {ls!r} sharded ({ts:.3f} s), {lp!r} "
+              f"unsharded ({tp:.3f} s), relative difference "
+              f"{abs(ls - lp) / abs(lp):.3g}", flush=True)
+        if not np.isfinite(ls) or abs(ls - lp) > 1e-6 * abs(lp):
+            fail(f"mesh step {i}: sharded loss {ls} against {lp}")
+    needed = ("flash_attention_f32", "flash_attention_bwd_f32",
+              "moe_dispatch", "moe_combine", "moe_combine_weight_grad")
+    for k in needed:
+        if launches[k] <= 0:
+            fail(f"mesh: kernel {k} was not launched ({launches})")
+    print(f"mesh launches ({MESH_STEPS} sharded steps): {launches}",
+          flush=True)
+    report.update(argument_bytes=sum(on_card), planned_bytes=sum(planned),
+                  allocated_bytes=held, planned_rounded_bytes=rounded,
+                  sharded_losses=[x for x, _ in sharded],
+                  unsharded_losses=[x for x, _ in plain],
+                  sharded_s=[t for _, t in sharded],
+                  unsharded_s=[t for _, t in plain], launches=launches)
+    report["dryrun"] = _finish_dryrun(procs, out)
+    return report, launches
+
+
 #: the ``--only`` phases besides ``lm`` (phase 6, run by ``lm_serving``)
 ONLY = {"moe-dispatch": dispatch_calls, "moe-layer": moe_layer_calls,
         "join-build": join_build_calls, "join-probe": join_probe_calls,
@@ -2630,7 +2894,7 @@ def main() -> None:
                     help="also trace one warm run of each query, and one "
                          "warm prefill and 12 decode steps of each LM with "
                          "torch.profiler, and print where the time goes")
-    ap.add_argument("--only", choices=(*ONLY, "lm", "train"),
+    ap.add_argument("--only", choices=(*ONLY, "lm", "train", "dryrun"),
                     help="run one phase alone and print its numbers as one "
                          "JSON line, to compare two checkouts in turns on "
                          "one card: moe-dispatch times the layer body's "
@@ -2644,7 +2908,8 @@ def main() -> None:
                          "shape and then Q-c and Q-e, sharded is phase 5b "
                          "after the single-device Q-a, lm is phase 6, "
                          "train is phase 2's training rows and phase 8 "
-                         "(with --profile, their traces)")
+                         "(with --profile, their traces), dryrun is phase 9 "
+                         "(the one-card mesh and the production dry-run)")
     ap.add_argument("--tree", type=Path,
                     help="with --only: drive the repro_torch package of "
                          "this checkout (e.g. a parent commit unpacked with "
@@ -2695,6 +2960,8 @@ def main() -> None:
         libs = ("moe_dispatch",)
     elif args.only in ("join-build", "join-probe", "segment-sum", "sharded"):
         libs = ("segment_join",)
+    elif args.only == "dryrun":
+        libs = ("flash_attention", "flash_attention_bwd", "moe_dispatch")
     for lib in libs:  # the first call builds every source, in parallel
         D.kernel_library(lib)
     print(f"kernel build ({', '.join(f'{x}.cu' for x in libs)}): "
@@ -2710,6 +2977,8 @@ def main() -> None:
         res = train_calls(dev, args.seed, args.profile)
     elif args.only == "sharded":
         res = sharded_calls(dev, args.seed, args.profile)
+    elif args.only == "dryrun":
+        res = {"mesh": mesh_phase(args.seed, root)[0]}
     elif args.only is not None:
         res = ONLY[args.only](dev, args.seed)
     if args.only is not None:
@@ -2806,6 +3075,13 @@ def main() -> None:
     train, train_launches = train_phase(args.seed, args.profile)
     print(f"training phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # phase 9: the one-card mesh and the production dry-run
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mesh, _ = mesh_phase(args.seed, root)
+    print(f"mesh phase: {time.perf_counter() - t0:.1f} s", flush=True)
+
     for r in rows:
         r["launches"] = launches[r["name"]]
     for r in lm_rows:  # each row's launches from its model's run
@@ -2827,7 +3103,8 @@ def main() -> None:
     print(json.dumps({"queries": {k: report[k] for k in QUERIES},
                       "peak_allocated_bytes": report["peak_allocated_bytes"],
                       "serving": serving, "sharded": sharded, "lm": lm,
-                      "train": train, "kernel_rows": extras}))
+                      "train": train, "mesh": mesh,
+                      "kernel_rows": extras}))
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {

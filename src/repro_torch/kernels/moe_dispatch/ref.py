@@ -7,7 +7,8 @@ among the tokens that share a row, so no pass writes a row twice and the
 order is fixed on any device), and writes x's dtype; combine multiplies the
 row ``buf[eidx_t, slot_t]`` by ``w_t`` cast to buf's dtype, in float32, and
 writes buf's dtype (+0.0 for a dropped assignment); :func:`combine_slots_ref`
-adds the k routing slots' combines in slot order in buf's dtype.
+adds the k routing slots' combines in slot order in buf's dtype, and
+:func:`dispatch_slots_ref` is the layer body's dispatch of all k slots.
 Assignments outside ``[0, E) x [0, C)`` are dropped.
 The wrappers in :mod:`.ops` take them for CPU tensors; the tests and
 ``chip_smoke.py`` hold the kernels against them on the card.
@@ -25,7 +26,8 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["dispatch_ref", "combine_ref", "combine_slots_ref",
-           "combine_weight_grad_ref", "dispatch_onehot_ref"]
+           "dispatch_slots_ref", "combine_weight_grad_ref",
+           "dispatch_onehot_ref"]
 
 
 def _rows(eidx, slot, E: int, C: int):
@@ -105,3 +107,23 @@ def dispatch_onehot_ref(x, eidx, slot, num_experts: int, capacity: int):
                          capacity + 1)[:, :capacity].to(x.dtype)
     mask = onehot_e[:, :, None] * onehot_c[:, None, :]
     return torch.einsum("tec,td->ecd", mask, x)
+
+
+def dispatch_slots_ref(x, topk_idx, slot, num_experts: int, capacity: int,
+                       w=None):
+    """x ``[T, d]``; topk_idx/slot ``[T, k]``; w ``[T, k]`` in x's dtype or
+    None → buf ``[E, C, d]`` in x's dtype: the layer body's dispatch of all
+    k routing slots (of ``x · w[:, j]`` where w is given), each slot's rows
+    added in with ``index_add_`` into an ``(E·C + 1)``-row buffer whose
+    last row takes the dropped assignments.  No shape depends on the data,
+    so it runs on the meta device a dry-run plans on.  In the layer each
+    (expert, slot) row holds at most one assignment (the slot is the rank
+    within the expert), so every row is the one token's row exactly, as
+    the kernel writes it."""
+    E, C = num_experts, capacity
+    row, keep = _rows(topk_idx, slot, E, C)
+    dst = torch.where(keep, row, E * C)
+    buf = x.new_zeros((E * C + 1, x.shape[1]))
+    for j in range(dst.shape[1]):
+        buf.index_add_(0, dst[:, j], x if w is None else x * w[:, j:j + 1])
+    return buf[:E * C].reshape(E, C, x.shape[1])

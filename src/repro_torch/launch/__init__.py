@@ -1,2 +1,3 @@
-"""Command-line entry points (the counterpart of ``src/repro/launch``; only
-``serve`` is ported yet)."""
+"""Command-line entry points and their planning helpers (the counterpart
+of ``src/repro/launch``): ``serve``, ``train``, ``dryrun``, with ``mesh``
+(device meshes) and ``specs`` (meta-device trees)."""

@@ -19,6 +19,10 @@ cache tensors in place (the reference returns updated copies through
 ``dynamic_update_slice``), which saves a copy of the cache per step.  Like
 ``dynamic_update_slice``, a write at a position past the cache's end lands
 on its last position, and the step then attends to every position.
+
+Under a mesh (DTensor inputs in a ``with mesh:`` scope) the reference's
+sharding constraints (:mod:`.pspec`) hold at the reference's places;
+outside one they return their input.
 """
 from __future__ import annotations
 
@@ -27,8 +31,10 @@ from typing import Optional
 
 import torch
 
+from ..distributed.sharding import is_dtensor
 from ..kernels.flash_attention.ops import flash_attention
 from .common import apply_rope, init_dense, init_rmsnorm, rmsnorm, softcap
+from .pspec import axis_size, constrain, constrain_kv_cache
 
 __all__ = [
     "chunked_attention", "decode_attention",
@@ -47,6 +53,9 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       kv_chunk: int = 1024) -> torch.Tensor:
     """q ``[B, Sq, H, D]``; k ``[B, Sk, KH, D]``; v ``[B, Sk, KH, Dv]`` →
     ``[B, Sq, H, Dv]`` in q's dtype."""
+    q = constrain(q, "dp", None, "model", None)
+    k = constrain(k, "dp", None, None, None)
+    v = constrain(v, "dp", None, None, None)
     return flash_attention(q, k, v, causal=causal, window=window, cap=cap,
                            scale=scale, q_offset=q_offset, q_blk=q_chunk,
                            kv_blk=kv_chunk)
@@ -64,15 +73,21 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     Dv = v_cache.shape[-1]
     G = H // KH
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    if is_dtensor(q) and KH % axis_size("model"):
+        # the grouped view splits the heads: gather them first on a mesh
+        # whose "model" axis does not divide the KV heads
+        q = constrain(q, "dp", None, None, None)
     qg = q.reshape(B, KH, G, D)
     s = torch.einsum("bhgd,bkhd->bhgk", qg.float(), k_cache.float()) * scale
+    # the batch pinned: the scores over a long cache stay batch-sharded
+    s = constrain(s, "dp", None, None, None)
     s = softcap(s, cap)
     pos_k = torch.arange(S, device=q.device)
     mask = pos_k <= cur_pos
     if window is not None:
         mask &= (cur_pos - pos_k) < window
     s = torch.where(mask, s, _NEG_INF)
-    p = torch.softmax(s, dim=-1)
+    p = constrain(torch.softmax(s, dim=-1), "dp", None, None, None)
     out = torch.einsum("bhgk,bkhd->bhgd", p.to(v_cache.dtype).float(),
                        v_cache.float())
     return out.reshape(B, 1, H, Dv).to(q.dtype)
@@ -102,17 +117,25 @@ def init_gqa(gen, cfg, dtype=torch.float32, device=None):
     return p
 
 
+def _split_heads(t: torch.Tensor, n: int, dh: int) -> torch.Tensor:
+    """``[B, S, n·dh]`` → ``[B, S, n, dh]``.  On a mesh whose ``"model"``
+    axis does not divide ``n`` the last dimension is gathered first: a
+    DTensor cannot split a dimension sharded across head boundaries."""
+    if is_dtensor(t) and n % axis_size("model"):
+        t = constrain(t, "dp", None, None)
+    return t.reshape(t.shape[0], t.shape[1], n, dh)
+
+
 def _gqa_qkv(params, x, cfg, sin, cos):
-    B, S, _ = x.shape
     H, KH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = x @ params["wq"]
     k = x @ params["wk"]
     v = x @ params["wv"]
     if cfg.qkv_bias:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
-    q = apply_rope(q.reshape(B, S, H, Dh), sin, cos)
-    k = apply_rope(k.reshape(B, S, KH, Dh), sin, cos)
-    return q, k, v.reshape(B, S, KH, Dh)
+    q = apply_rope(_split_heads(q, H, Dh), sin, cos)
+    k = apply_rope(_split_heads(k, KH, Dh), sin, cos)
+    return q, k, _split_heads(v, KH, Dh)
 
 
 def gqa_forward(params, x, cfg, sin, cos, *, window=None, is_causal=True,
@@ -136,6 +159,9 @@ def gqa_decode(params, x, cfg, sin, cos, k_cache, v_cache, cur_pos: int, *,
     q, k, v = _gqa_qkv(params, x, cfg, sin, cos)
     _write_at(k_cache, k, cur_pos)
     _write_at(v_cache, v, cur_pos)
+    # the cache keeps its layout through the write (no re-layout a step)
+    k_cache = constrain_kv_cache(k_cache)
+    v_cache = constrain_kv_cache(v_cache)
     out = decode_attention(q, k_cache, v_cache, cur_pos, window=window,
                            cap=cfg.attn_logit_softcap)
     out = out.reshape(B, 1, cfg.num_heads * cfg.head_dim) @ params["wo"]
@@ -211,13 +237,14 @@ def mla_decode(params, x, cfg, sin, cos, ckv_cache, cur_pos: int):
     q_nope, q_rope = _mla_q(params, x, cfg, sin, cos)
     c_new, k_rope_new = _mla_ckv(params, x, cfg, sin, cos)
     _write_at(ckv_cache, torch.cat([c_new, k_rope_new], dim=-1), cur_pos)
+    ckv_cache = constrain_kv_cache(ckv_cache)
     cache_c = ckv_cache[..., :rank].float()
     cache_rope = ckv_cache[..., rank:].float()
     w_uk = params["w_uk"].reshape(rank, H, nope).float()
     q_abs = torch.einsum("bhn,rhn->bhr", q_nope[:, 0].float(), w_uk)
     s = torch.einsum("bhr,bsr->bhs", q_abs, cache_c)
     s = s + torch.einsum("bhp,bsp->bhs", q_rope[:, 0].float(), cache_rope)
-    s = s * (1.0 / math.sqrt(nope + rp))
+    s = constrain(s, "dp", "model", None) * (1.0 / math.sqrt(nope + rp))
     mask = torch.arange(ckv_cache.shape[1], device=x.device) <= cur_pos
     p = torch.softmax(torch.where(mask, s, _NEG_INF), dim=-1)
     o_c = torch.einsum("bhs,bsr->bhr", p, cache_c)

@@ -23,6 +23,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from .pspec import constrain
 from .common import init_dense, init_rmsnorm, rmsnorm
 
 __all__ = ["init_mamba2", "mamba2_forward", "mamba2_decode", "ssd_scan",
@@ -220,8 +221,10 @@ def mamba2_decode(params, x, cfg, conv_state, ssd_state):
     d_inner, nheads, g, n, conv_ch = _dims(cfg)
     xt = x[:, 0, :]
     z = xt @ params["wz"]
-    u_new = torch.cat([xt @ params["wx"], xt @ params["wb"],
-                       xt @ params["wc"]], dim=-1)
+    # each product laid out alike first: on a mesh DTensor cannot join a
+    # batch-split piece with a partial sum
+    u_new = torch.cat([constrain(xt @ params[w], "dp", None)
+                       for w in ("wx", "wb", "wc")], dim=-1)
     window = torch.cat([conv_state, u_new[:, None, :]], dim=1)  # [B,W,C]
     conv_out = F.silu(
         torch.einsum("bwc,wc->bc", window.float(), params["conv_w"].float())

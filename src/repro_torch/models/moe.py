@@ -7,14 +7,15 @@ one of two ways, mirroring the paper's linear vs tensor execution paths:
     structure, stably argsort by expert, scatter into a materialized
     ``(E·C, d)`` buffer, run the experts, gather back.  Plain PyTorch.
   * **einsum path** (``dispatch="einsum"``, tensor): (expert, capacity) kept
-    as explicit axes.  On the card it runs the hand-written dispatch and
-    combine kernels (:func:`repro_torch.kernels.moe_dispatch.ops.
-    moe_dispatch`, the reference's ``moe_dispatch_pallas``), which never
-    build the one-hot mask; on the CPU the one-hot einsums of the
-    reference.
+    as explicit axes.  It runs the layer body
+    :func:`repro_torch.kernels.moe_dispatch.ops.moe_dispatch` (the
+    reference's ``moe_dispatch_pallas``): the hand-written dispatch and
+    combine kernels on the card, their plain versions elsewhere, neither
+    of which builds the reference's one-hot mask.
   * ``dispatch="auto"`` compares the one-hot working set ``T·E·C·4`` bytes
-    with ``budget_bytes`` (:func:`select_dispatch_path`).  The port runs on
-    one device, so the working set is not divided over a mesh.
+    *per device* with ``budget_bytes`` (:func:`select_dispatch_path`): under
+    a mesh (the ambient ``with mesh:`` scope) the mask is divided over its
+    devices, as in the reference.
 
 Both paths drop the same overflow tokens (identical capacity semantics).
 """
@@ -29,6 +30,7 @@ import torch.nn.functional as F
 
 from ..kernels.moe_dispatch import ops as moe_ops
 from .common import init_dense, randn
+from .pspec import ambient_mesh, constrain
 
 __all__ = ["init_moe", "moe_forward", "select_dispatch_path",
            "DispatchDecision", "capacity_per_expert"]
@@ -53,9 +55,12 @@ def select_dispatch_path(num_tokens: int, num_experts: int, capacity: int,
                          d_model: int, k: int,
                          budget_bytes: int = 2 << 30,
                          force: Optional[str] = None) -> DispatchDecision:
-    """Execution-time path choice from static step shapes (paper §III.C),
-    on one device (``shards = 1``)."""
-    onehot_bytes = num_tokens * num_experts * capacity * 4
+    """Execution-time path choice from static step shapes (paper §III.C).
+    The one-hot working set is evaluated per device: under a mesh the
+    ``[T, E, C]`` mask shards over its devices."""
+    mesh = ambient_mesh()
+    shards = mesh.size() if mesh is not None else 1
+    onehot_bytes = num_tokens * num_experts * capacity * 4 // max(1, shards)
     if force in ("sort", "einsum"):
         return DispatchDecision(force, "forced", onehot_bytes, capacity)
     if onehot_bytes > budget_bytes:
@@ -120,10 +125,17 @@ def _route(params, x_flat, cfg):
 
 
 def _expert_ffn(params, buf, cfg):
-    """buf [E, C, d] → [E, C, d] via the per-expert gated FFN."""
-    h = F.silu(torch.einsum("ecd,edf->ecf", buf, params["wg"])) * \
-        torch.einsum("ecd,edf->ecf", buf, params["wi"])
-    return torch.einsum("ecf,efd->ecd", h, params["wo"])
+    """buf [E, C, d] → [E, C, d] via the per-expert gated FFN.  Under a
+    mesh each expert's weights are gathered whole on its ``"model"`` rank
+    (FSDP's ``"data"`` shards joined once a use), as the reference pins
+    them, instead of keeping ``d`` split and reducing the ``(E, C, ff)``
+    activation over ``"data"``."""
+    wg = constrain(params["wg"], "model", None, None)
+    wi = constrain(params["wi"], "model", None, None)
+    wo = constrain(params["wo"], "model", None, None)
+    h = F.silu(torch.einsum("ecd,edf->ecf", buf, wg)) * \
+        torch.einsum("ecd,edf->ecf", buf, wi)
+    return torch.einsum("ecf,efd->ecd", h, wo)
 
 
 # ---------------------------------------------------------------------------
@@ -131,26 +143,10 @@ def _expert_ffn(params, buf, cfg):
 # ---------------------------------------------------------------------------
 
 def _dispatch_einsum(params, x_flat, topk_idx, topk_w, cfg, capacity):
-    """TENSOR path: the kernels on the card, the one-hot einsums on the
-    CPU."""
-    if x_flat.device.type == "cuda":
-        return moe_ops.moe_dispatch(params, x_flat, topk_idx, topk_w, cfg,
-                                    capacity, _expert_ffn)
-    T, d = x_flat.shape
-    E, k = cfg.num_experts, cfg.experts_per_token
-    slot = moe_ops.expert_slots(topk_idx, E).reshape(-1).long()
-    flat_e = topk_idx.reshape(-1)
-    keep = slot < capacity
-    onehot_c = F.one_hot(torch.where(keep, slot, capacity),
-                         capacity + 1)[:, :capacity].to(x_flat.dtype)
-    mask = F.one_hot(flat_e, E).to(x_flat.dtype)[:, :, None] * \
-        onehot_c[:, None, :]
-    mask = mask.reshape(T, k, E, capacity)
-    dispatch = mask.sum(dim=1)                                 # [T, E, C]
-    combine = (mask * topk_w.to(x_flat.dtype)[..., None, None]).sum(dim=1)
-    buf = torch.einsum("tec,td->ecd", dispatch, x_flat)
-    out_buf = _expert_ffn(params, buf, cfg)
-    return torch.einsum("tec,ecd->td", combine, out_buf)
+    """TENSOR path: the layer body of the kernels' ops (the kernels on the
+    card, their plain versions elsewhere, DTensors through ``local_map``)."""
+    return moe_ops.moe_dispatch(params, x_flat, topk_idx, topk_w, cfg,
+                                capacity, _expert_ffn)
 
 
 def _dispatch_sort(params, x_flat, topk_idx, topk_w, cfg, capacity):
@@ -226,6 +222,8 @@ def moe_forward(params, x, cfg, *, dispatch: str = "auto",
             aux = aux + a
             ys.append(y.reshape(B, sc, d))
         return torch.cat(ys, dim=1), aux / nc
-    y, aux = _moe_tokens(params, x.reshape(B * S, d), cfg, dispatch,
-                         budget_bytes)
+    # the tokens' gradient kept split like the batch, so the reshape back
+    # to [B, S, d] can take it on a mesh
+    x_flat = constrain(x.reshape(B * S, d), "dp", None)
+    y, aux = _moe_tokens(params, x_flat, cfg, dispatch, budget_bytes)
     return y.reshape(B, S, d), aux

@@ -32,6 +32,7 @@ import math
 from typing import Any, Dict
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -44,6 +45,8 @@ from .common import (init_dense, init_mlp, init_rmsnorm, mlp, mrope_freqs,
 from .mamba2 import _dims as mamba_dims
 from .mamba2 import init_mamba2, mamba2_decode, mamba2_forward
 from .moe import init_moe, moe_forward
+from ..distributed.sharding import is_dtensor
+from .pspec import constrain, with_sharding_constraint
 
 __all__ = ["init_model", "forward", "prefill", "decode_step", "init_cache",
            "cross_entropy_loss", "model_input_dtypes", "hidden_forward",
@@ -200,6 +203,10 @@ def _embed(params, cfg: ArchConfig, batch):
     if cfg.modality == "audio_stub":
         f = params["frontend"]
         x = rmsnorm(f["norm"], batch["features"] @ f["proj"], cfg.norm_eps)
+    elif is_dtensor(params["embed"]["table"]):
+        # DTensor's own embedding rule (the same rows as indexing, whose
+        # backward's index_put some DTensor versions cannot lay out)
+        x = F.embedding(batch["tokens"].long(), params["embed"]["table"])
     else:
         x = params["embed"]["table"][batch["tokens"].long()]
     if cfg.embed_scale:
@@ -247,11 +254,14 @@ def forward(params, cfg: ArchConfig, batch, *, collect_cache: bool = False,
             moe_dispatch: str = "auto", moe_budget: int = 2 << 30,
             moe_token_chunk: int = 32_768, remat: bool = False,
             remat_policy: str = "full", q_chunk: int = 256,
-            kv_chunk: int = 1024, return_hidden: bool = False):
+            kv_chunk: int = 1024, return_hidden: bool = False,
+            logits_sharding=None):
     """batch: {"tokens": [B,S]} | {"features": [B,S,d]} (+ "positions" for
     M-RoPE).  Returns (logits [B,S,V], aux_loss, cache|None).  With
     ``remat`` each period's activations are recomputed in the backward
-    (``remat_policy`` "full", or "dots" to keep the matrix products)."""
+    (``remat_policy`` "full", or "dots" to keep the matrix products).
+    ``logits_sharding`` (a ``distributed.sharding.NamedSharding``) keeps
+    DTensor logits vocab-sharded."""
     x = _embed(params, cfg, batch)
     B, S = x.shape[0], x.shape[1]
     sin, cos = _rope_tables(cfg, batch, S, x.device)
@@ -274,13 +284,15 @@ def forward(params, cfg: ArchConfig, batch, *, collect_cache: bool = False,
 
         def period_body(n, x, aux_acc):
             period_params = _period(params["blocks"], n)
+            # the residual stream pinned: batch over dp, replicated elsewhere
+            x = constrain(x, "dp", None, None)
             out = {}
             for i, spec in enumerate(cfg.pattern):
                 x, out[f"s{i}"], aux = _apply_slot(
                     period_params[f"s{i}"], cfg, spec, x, sin, cos,
                     **apply_kw)
                 aux_acc = aux_acc + aux
-            return x, aux_acc, out
+            return constrain(x, "dp", None, None), aux_acc, out
 
         for n in range(cfg.num_periods):
             if remat:
@@ -298,7 +310,8 @@ def forward(params, cfg: ArchConfig, batch, *, collect_cache: bool = False,
                        for name in per[0]}
                 for slot, per in entries.items()}
 
-    logits = x if return_hidden else _head(params, cfg, x)
+    logits = x if return_hidden else with_sharding_constraint(
+        _head(params, cfg, x), logits_sharding)
     cache = None
     if collect_cache:
         cache = {"prefix": prefix_cache, "blocks": block_cache, "pos": S}
@@ -308,6 +321,7 @@ def forward(params, cfg: ArchConfig, batch, *, collect_cache: bool = False,
 def prefill(params, cfg: ArchConfig, batch, **kw):
     """Forward returning (last-token logits, cache) — the serving prefill.
     The head is applied to the LAST position only."""
+    kw.pop("logits_sharding", None)
     hidden, _, cache = forward(params, cfg, batch, collect_cache=True,
                                return_hidden=True, **kw)
     logits = _head(params, cfg, hidden[:, -1:, :])
@@ -318,30 +332,40 @@ def hidden_forward(params, cfg: ArchConfig, batch, **kw):
     """Forward WITHOUT the head: returns (hidden [B,S,d], aux_loss).
     Training takes this and :func:`chunked_softmax_xent`, so the
     ``[B, S, V]`` logits never exist."""
+    kw.pop("logits_sharding", None)
     hidden, aux, _ = forward(params, cfg, batch, return_hidden=True, **kw)
     return hidden, aux
 
 
 def chunked_softmax_xent(params, cfg: ArchConfig, hidden, labels, *,
-                         chunk: int = 512):
+                         chunk: int = 512, logits_sharding=None):
     """Mean cross entropy over sequence chunks (labels < 0 masked): the
     head, the logsumexp and the gold logit of one chunk at a time, each
     chunk recomputed in the backward (``torch.utils.checkpoint``), so the
     peak is ``B · chunk · V`` logits instead of ``B · S · V``.  The
     chunks' sums are added in order from 0, as the reference's scan adds
-    them."""
+    them.  ``logits_sharding`` keeps each chunk's DTensor logits
+    vocab-sharded."""
     B, S, _ = hidden.shape
     chunk = min(chunk, S)
     if S % chunk:
         raise ValueError(f"sequence {S} is not a multiple of chunk {chunk}")
 
     def chunk_nll(xc, lc):
-        logits = _head(params, cfg, xc)
+        logits = with_sharding_constraint(_head(params, cfg, xc),
+                                          logits_sharding)
         mask = (lc >= 0).float()
         lf = logits.float()
         lse = torch.logsumexp(lf, dim=-1)
-        gold = torch.gather(lf, -1, torch.clamp_min(lc.long(), 0)[..., None])
-        return ((lse - gold[..., 0]) * mask).sum(), mask.sum()
+        lab = torch.clamp_min(lc.long(), 0)
+        if is_dtensor(lf):
+            # a gather from vocab-sharded DTensor logits has no working
+            # sharding rule; the reference's one-hot contraction gives the
+            # same value (one term, the rest exact zeros)
+            gold = (lf * F.one_hot(lab, lf.shape[-1]).to(lf.dtype)).sum(-1)
+        else:
+            gold = torch.gather(lf, -1, lab[..., None])[..., 0]
+        return ((lse - gold) * mask).sum(), mask.sum()
 
     nll = torch.zeros((), dtype=torch.float32, device=hidden.device)
     cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)

@@ -16,3 +16,15 @@ PEAK_FLOPS_TF32 = 494.7e12
 #: integer and float64 work too, an upper bound on it, so a bound computed
 #: from it is a lower bound on the time
 PEAK_FLOPS_F32 = 67e12
+
+#: device memory of one H100 SXM: 80 GB of HBM3 (NVIDIA's data sheet
+#: says "80GB"; the card reports 81,559 MiB, of which PyTorch can allocate
+#: a little less), taken as 80 · 10^9 bytes, a bound every plan must fit
+HBM_BYTES = 80 * 10**9
+
+#: NVLink 4 of one H100 SXM: 900 GB/s of bidirectional bandwidth a card
+#: (data sheet: 18 links at 50 GB/s), so 450e9 bytes/s in each direction;
+#: it takes the place of the reference's per-link ICI rate, and, as that
+#: one, a collective's bytes divided by it are the time one direction of
+#: the card's links takes to carry them
+NVLINK_BW = 450e9

@@ -21,6 +21,7 @@ from typing import Any, Callable, Optional
 import torch
 
 from ..configs.base import ArchConfig
+from ..distributed.sharding import is_dtensor
 from ..models import cross_entropy_loss, forward
 from ..models.transformer import chunked_softmax_xent, hidden_forward
 from .optimizer import Optimizer
@@ -40,6 +41,9 @@ class TrainPolicy:
     moe_token_chunk: int = 32_768
     remat_policy: str = "full"   # full (recompute all) | dots (save matmul outs)
     grad_accum_dtype: Any = torch.float32
+    #: a ``distributed.sharding.NamedSharding``: keep DTensor [B,S,V]
+    #: logits vocab-sharded
+    logits_sharding: Any = None
 
 
 def default_policy(cfg: ArchConfig) -> TrainPolicy:
@@ -56,14 +60,31 @@ def _loss_for_batch(params, cfg: ArchConfig, mb, policy: TrainPolicy):
         params, cfg, mb, remat=policy.remat, remat_policy=policy.remat_policy,
         moe_dispatch=policy.moe_dispatch, moe_budget=policy.moe_budget_bytes,
         moe_token_chunk=policy.moe_token_chunk)
-    return chunked_softmax_xent(params, cfg, hidden, mb["labels"]) + aux
+    return chunked_softmax_xent(params, cfg, hidden, mb["labels"],
+                                logits_sharding=policy.logits_sharding) + aux
 
 
 def _microbatch(batch, m: int, n_mb: int):
     """Rows ``{r · n_mb + m}`` of every input; ``positions`` is ``[3, B,
-    S]``, its rows on the second axis."""
-    return {k: (v[:, m::n_mb] if k == "positions" else v[m::n_mb])
+    S]``, its rows on the second axis.  Taken as the reference takes them,
+    the row axis split into ``(B / n_mb, n_mb)`` and index ``m`` of the
+    second factor (the same view as ``v[m::n_mb]``), which keeps a
+    DTensor's row shards on their ranks."""
+    def rows(v, axis):
+        B = v.shape[axis]
+        split = v.reshape(v.shape[:axis] + (B // n_mb, n_mb)
+                          + v.shape[axis + 1:])
+        return split.select(axis + 1, m)
+    return {k: rows(v, 1 if k == "positions" else 0)
             for k, v in batch.items()}
+
+
+def _param_layout(p, g):
+    """A DTensor gradient in its parameter's layout (autograd can hand it
+    back as a partial sum or split otherwise); anything else as it is."""
+    if is_dtensor(g) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def make_train_step(cfg: ArchConfig, optimizer: Optimizer,
@@ -79,6 +100,8 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer,
             p.grad = None
         loss = _loss_for_batch(params, cfg, mb, policy)
         loss.backward()
+        for p in leaves:
+            p.grad = _param_layout(p, p.grad)
         return loss.detach(), [p.grad for p in leaves]
 
     def train_step(params, opt_state, batch):
@@ -86,8 +109,8 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer,
         if n_mb == 1:
             loss, grads = loss_and_grads(params, batch)
         else:
-            acc = [torch.zeros(p.shape, dtype=policy.grad_accum_dtype,
-                               device=p.device) for p in leaves]
+            acc = [torch.zeros_like(p, dtype=policy.grad_accum_dtype,
+                                    requires_grad=False) for p in leaves]
             loss = torch.zeros((), dtype=torch.float32,
                                device=leaves[0].device)
             for m in range(n_mb):

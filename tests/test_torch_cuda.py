@@ -1450,3 +1450,37 @@ def test_launch_train_on_card(dev, tmp_path):
     for s in (2, 3):
         assert resumed["losses"][s] == pytest.approx(whole["losses"][s],
                                                      rel=1e-6)
+
+
+def test_kernel_wrappers_on_a_split_mesh_on_card(dev, tmp_path):
+    """The hand kernels under ``local_map`` on a (2, 2) mesh of 4 NCCL
+    ranks, a card each: query heads and experts split over ``"model"``, so
+    each rank's kernels see its K/V head slice (or gather, where 6 heads
+    over 2 ranks straddle GQA groups) and the expert ids of the other
+    ``"model"`` rank offset out of range, which the dispatch and combine
+    kernels drop.  Values and the gradients of every input (dK/dV and dx
+    summed over ``"model"``) against the same wrappers on plain tensors,
+    which launch the kernels unsplit; the split calls launch every kernel
+    of the path.  NCCL takes one rank a card, and gloo's functional
+    all-gather faults on CUDA tensors, so fewer than 4 cards skip."""
+    from torch_dist_common import kernel_wrappers_worker, run_ranks
+
+    from repro_torch.device import kernel_library
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 cards: a (2, 2) NCCL mesh, one rank a card")
+    kernel_library("moe_dispatch")   # built once, before the ranks start
+    out = run_ranks(kernel_wrappers_worker, 4, str(tmp_path / "out.json"),
+                    "cuda", 2, timeout=300, backend="nccl")
+    for heads in ("4_2", "4_1", "6_3", "4_4"):
+        r = out[f"attn_{heads}"]
+        assert r["err"] < 1e-5 and r["grad_err"] < 1e-5, (heads, r)
+        assert r["placements"] == ["S(0)", "S(2)"], (heads, r)
+    r = out["moe_layer"]
+    assert r["err"] < 1e-5 and r["grad_err"] < 1e-5, r
+    r = out["single_ops"]
+    assert r["expert_slots"]
+    assert r["dispatch"] == 0.0 and r["combine_slots"] == 0.0, r
+    for name in ("flash_attention_f32", "flash_attention_bwd_f32",
+                 "moe_dispatch", "moe_combine", "moe_combine_weight_grad"):
+        assert out["launched"].get(name, 0) > 0, out["launched"]

@@ -2,7 +2,8 @@
 tensors take) and its MoE layer against the reference on the CPU: the
 cases of ``tests/test_kernels.py`` (overflow and duplicate slots
 included) against the Pallas kernels in interpret mode and the one-hot
-oracles, the kernel-path layer body against the model's einsum path, and
+oracles, the kernel-path layer body (which the model's einsum path
+runs) against the reference's einsum path, and
 the einsum and sort paths of ``moe_forward`` against each other and the
 reference, as in ``tests/test_moe.py``.  Tolerances are the reference
 tests': 1e-5 for float32 dispatch, 3e-2 for bfloat16, 2e-5 for the layer

@@ -1,7 +1,8 @@
 """MoE gradients on the CPU: the port's layer (router, experts, shared
 experts and tokens) against ``jax.grad`` of the reference's
-``moe_forward``, on the einsum path (the one-hot einsums), the sort path
-and the kernel path's differentiable layer body (``ops.moe_dispatch``:
+``moe_forward``, on the einsum path (``dispatch="einsum"``, which runs
+the kernel path's layer body), the sort path and that differentiable
+layer body called directly (``ops.moe_dispatch``:
 ``DispatchSlots``/``CombineSlots`` over the plain versions, what the card
 runs over its kernels), with a capacity factor below 1 so that slots are
 dropped; and the backward formulas of the two functions against autograd
