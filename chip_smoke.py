@@ -111,7 +111,14 @@ Phases (any mismatch or exception ends the run with a non-zero exit code):
    checkpoint, a fourth step, a restart from the checkpoint and the fourth
    step again, which must equal the uninterrupted one.  Fails on a loss
    that is not finite, a parameter without a gradient or a third loss not
-   below the first;
+   below the first.  Then the same cut in bf16 on the emptied card: the
+   float32 run's initial weights rounded to bf16, AdamW's state float32,
+   3 + 1 steps (the bf16 flash-attention forward writing its logsumexp,
+   the bf16 backward kernel, the MoE kernels on bf16 activations), no
+   checkpoint; each step's s, tokens/s and model flops over the bf16 peak,
+   peak memory, the launches a step; fails on a loss that is not finite or
+   not falling, a parameter without a gradient, or a first loss farther
+   than 2e-2 (relative) from the float32 run's;
 9. the LM on a mesh (``--only dryrun``): the production dry-run
    (``repro_torch.launch.dryrun``) of Phi-3.5-MoE x train_4k and
    DeepSeek-V2-Lite x prefill_32k on the (16, 16) mesh starts in two
@@ -132,7 +139,11 @@ phase 6's shapes; their ``launches`` come from the phase 6 run of the
 model named by the row's ``at`` (the float32 attention kernel's from
 phase 7), the relational kernels' from phase 3; and the training path's
 three (the float32 forward with its logsumexp, its backward, the
-routing-weight gradient) at phase 8's shapes, launches from phase 8.
+routing-weight gradient) at phase 8's shapes, launches from phase 8's
+float32 run; and the bf16 training path's (the bf16 forward with its
+logsumexp, the bf16 backward, also at DeepSeek-V2-Lite's MLA widths, and
+the routing-weight gradient on bf16 activations), launches from phase 8's
+bf16 run.
 
 The script imports nothing of JAX.  The line before the last is the card as
 ``nvidia-smi`` names it; the last line is one JSON object with the device.
@@ -1246,11 +1257,23 @@ def lm_kernel_phase(dev, seed: int):
 
 
 #: phase 8's training shapes: Phi-3.5-MoE at full width, 2 of its 32
-#: layers, float32, 2 x 4096 tokens a step
+#: layers, float32 and then bf16, 2 x 4096 tokens a step
 TRAIN_LAYERS = 2
 TRAIN_AT = "phi3.5-moe-train"
+TRAIN_AT_BF16 = "phi3.5-moe-train-bf16"
+#: the bf16 backward at DeepSeek-V2-Lite's MLA widths; its launches are
+#: the bf16 training run's (phase 8 trains Phi-3.5-MoE only)
+TRAIN_AT_MLA = "deepseek-v2-lite-widths-bf16"
 TRAIN_GRAD_TOL = 1e-4     # the backward, of each gradient's largest |value|
 WGRAD_TOL = 1e-5          # the routing-weight gradient, the same
+#: the bf16 forward's logsumexp against its plain version (absolute; the
+#: kernel's exponentials and row sums are float32, in another order)
+LSE_BF16_TOL = 1e-3
+#: the bf16 backward's dq, dk, dv, of each gradient's largest |plain|: P
+#: and dS are rounded to bf16 (2^-9 relative) as operands of the gradient
+#: products and each gradient is stored in bf16; the plain version keeps
+#: float32 throughout
+TRAIN_GRAD_TOL_BF16 = 2.0 ** -6
 
 
 def train_kernel_phase(dev, seed: int):
@@ -1265,7 +1288,8 @@ def train_kernel_phase(dev, seed: int):
     backward's bound counts five products (S, dP, dV, dK, dQ: 2.5 times
     the forward's flops) at the rate row 6b uses; its row also carries the
     device time of each of its kernels (``delta_kernel``, the dK/dV pass
-    ``dkdv_kernel`` and the dQ pass ``dq_kernel``), from profiler traces."""
+    ``dkdv_kernel`` and the dQ pass ``dq_kernel``), from profiler traces.
+    Then the bf16 training path's rows (:func:`train_bf16_kernel_rows`)."""
     import torch
     import torch.nn.functional as F
 
@@ -1350,19 +1374,8 @@ def train_kernel_phase(dev, seed: int):
         q, k, v, out, lse, do, causal=True, scale=scale), 3)
     # the device time of each of the backward's kernels (its passes; each
     # launches once a call), and their sum
-    by_name = {}
-    device_ms_per_call(bwd, FK.BWD_KERNEL, 5, by_name)
-    passes = {}
-    for what in ("delta_kernel", "dkdv_kernel", "dq_kernel"):
-        hits = [ms for name, ms in by_name.items() if what in name]
-        if len(hits) != 1:
-            fail(f"flash_attention_bwd_f32: {len(hits)} traced kernels "
-                 f"named {what} ({sorted(by_name)})")
-        passes[what] = hits[0]
-    bwd_device_ms = sum(passes.values())
-    print(f"flash_attention_bwd_f32 device time {bwd_device_ms:.4f} ms a "
-          f"call: " + ", ".join(f"{k} {v:.4f}" for k, v in passes.items())
-          + f" ({sorted(by_name)})", flush=True)
+    bwd_device_ms, passes = _bwd_passes(
+        bwd, FK.BWD_KERNEL, ("delta_kernel", "dkdv_kernel", "dq_kernel"))
     rows.append({"name": FK.BWD_KERNEL, "at": TRAIN_AT, "route": "cuda",
                  "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
                  "replaces": "src/repro/kernels/flash_attention/kernel.py:70",
@@ -1416,6 +1429,215 @@ def train_kernel_phase(dev, seed: int):
                  "library_ms": time_ms(library),
                  "shape": f"T={T}, k={kk}, d={d}, E={E}, C={C}, float32, "
                           f"{kept} routed rows"})
+    return rows + train_bf16_kernel_rows(dev, seed)
+
+
+def _bwd_passes(fn, kernel_name: str, what: tuple) -> tuple:
+    """The device time of one call of a backward ``fn`` and of each of its
+    kernels, named by the substrings ``what`` (each launches once a call),
+    from two profiler traces that agree."""
+    by_name = {}
+    device_ms_per_call(fn, kernel_name, 5, by_name)
+    passes = {}
+    for w in what:
+        hits = [ms for name, ms in by_name.items() if w in name]
+        if len(hits) != 1:
+            fail(f"{kernel_name}: {len(hits)} traced kernels named {w} "
+                 f"({sorted(by_name)})")
+        passes[w] = hits[0]
+    total = sum(passes.values())
+    print(f"{kernel_name} device time {total:.4f} ms a call: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in passes.items()),
+          flush=True)
+    return total, passes
+
+
+def train_bf16_kernel_rows(dev, seed: int):
+    """The bf16 training path's kernels at phase 8's shapes, each against
+    its plain version on the same inputs: the bf16 forward writing its row
+    logsumexp (row 6-lse; Phi-3.5-MoE's heads, B 2, S 4096, causal), whose
+    output must equal the forward without it bit for bit and whose
+    logsumexp must lie within ``LSE_BF16_TOL``; the bf16 backward kernel at
+    that shape (row 6-bwd) and at DeepSeek-V2-Lite's MLA widths (row
+    6m-bwd: 16 heads, D 192, Dv 128), dq, dk, dv within
+    ``TRAIN_GRAD_TOL_BF16`` of the plain version's largest magnitude, with
+    SDPA's bf16 backward's error against the same plain version printed
+    beside it for scale; and ``moe_combine_weight_grad`` on a bf16 buffer
+    and dy at Phi-3.5-MoE's training shape (within ``WGRAD_TOL``).  The
+    backward's bound counts five products at the bf16 rate, as row 6-bwd
+    is defined; the library call is SDPA's bf16 forward + backward minus
+    its forward, K/V repeated to the query heads."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention import ref as FR
+    from repro_torch.kernels.moe_dispatch import kernel as MK
+    from repro_torch.kernels.moe_dispatch import ops as MO
+    from repro_torch.kernels.moe_dispatch import ref as MR
+    from repro_torch.models.moe import _route, capacity_per_expert
+    from repro_torch.roofline import hw
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 9)
+    rows = []
+    B, S = PREFILL_BATCH, PREFILL_LEN
+    for at, H, KH, Dh, Dv in ((TRAIN_AT_BF16, 32, 8, 128, 128),
+                              (TRAIN_AT_MLA, 16, 16, 192, 128)):
+        q, k, v, do = (torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16) for shape in ((B, S, H, Dh), (B, S, KH, Dh),
+                                          (B, S, KH, Dv), (B, S, H, Dv)))
+        scale = Dh ** -0.5
+        pairs = B * H * S * (S + 1) // 2
+        shape = (f"B={B}, S={S}, H={H}, KH={KH}, D={Dh}, Dv={Dv}, bfloat16, "
+                 f"causal")
+        G = H // KH
+        qt, kt, vt, dot = (t.transpose(1, 2).contiguous()
+                           for t in (q, k, v, do))
+        kr, vr = (t.repeat_interleave(G, dim=1) for t in (kt, vt))
+        leaves = [t.detach().requires_grad_(True) for t in (qt, kr, vr)]
+
+        def sdpa_fwd():
+            return F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                                  scale=scale)
+
+        def sdpa_fwd_bwd():
+            return torch.autograd.grad(sdpa_fwd(), leaves, dot)
+
+        def fwd():
+            return FK.flash_attention_fwd(q, k, v, causal=True, scale=scale,
+                                          return_lse=True)
+
+        out, lse = fwd()
+        sdpa_fwd_ms = time_ms(sdpa_fwd, 5)
+        if at == TRAIN_AT_BF16:  # row 6-lse
+            plain_out = FK.flash_attention_fwd(q, k, v, causal=True,
+                                               scale=scale)
+            if not torch.equal(out, plain_out):
+                fail("flash_attention_lse's output differs from the serving "
+                     "instantiation's")
+            r_out, r_lse = FR.flash_attention_ref(q, k, v, causal=True,
+                                                  scale=scale,
+                                                  return_lse=True)
+            err_o = attn_err(out, r_out, f"with its logsumexp, {shape}")
+            err_l = float((lse - r_lse).abs().max())
+            print(f"flash_attention_lse check {shape}: output bit-equal to "
+                  f"the serving instantiation's, logsumexp max abs err "
+                  f"{err_l:.3g} (tol {LSE_BF16_TOL})", flush=True)
+            if not err_l <= LSE_BF16_TOL:
+                fail(f"flash_attention_lse's logsumexp differs from its "
+                     f"plain version by {err_l}")
+            del r_out, r_lse, plain_out
+            t_b, by = bound(2 * (q.numel() + k.numel() + v.numel()
+                                 + out.numel()) + 4 * lse.numel(),
+                            2 * (2 * Dh) * pairs, hw.PEAK_FLOPS_BF16)
+            rows.append({
+                "name": FK.LSE_KERNEL, "at": at, "route": "cuda",
+                "source": "src/repro_torch/csrc/flash_attention_sm90.cu",
+                "replaces": "src/repro/kernels/flash_attention/kernel.py:70",
+                "max_abs_err": max(err_o, err_l), "ms": time_ms(fwd, 10),
+                "plain_ms": time_ms(lambda: FR.flash_attention_ref(
+                    q, k, v, causal=True, scale=scale, return_lse=True), 3),
+                "bound_ms": t_b, "bound_by": by, "library_ms": sdpa_fwd_ms,
+                "serving_ms": time_ms(lambda: FK.flash_attention_fwd(
+                    q, k, v, causal=True, scale=scale), 10),
+                "shape": f"{shape}, with the row logsumexp (SDPA forward "
+                         f"with grad, K/V repeated to {H} heads)"})
+
+        def bwd():
+            return FK.flash_attention_bwd(q, k, v, out, lse, do, causal=True,
+                                          scale=scale)
+
+        got = bwd()
+        want = FR.flash_attention_bwd_ref(q, k, v, out, lse, do, causal=True,
+                                          scale=scale)
+        errs = [float((a.float() - b).abs().max()) for a, b in zip(got, want)]
+        worst = max(e / float(b.abs().max()) for e, b in zip(errs, want))
+        if not all(torch.equal(a, b) for a, b in zip(got, bwd())):
+            fail(f"{FK.BWD_BF16_KERNEL} gives other bits on a second call")
+        del got
+        sq, sk, sv = sdpa_fwd_bwd()
+        sdpa = (sq.transpose(1, 2), sk.unflatten(1, (KH, G)).sum(2)
+                .transpose(1, 2), sv.unflatten(1, (KH, G)).sum(2)
+                .transpose(1, 2))
+        sdpa_worst = max(float((a.float() - b).abs().max()
+                               / b.abs().max()) for a, b in zip(sdpa, want))
+        del sq, sk, sv, sdpa
+        print(f"{FK.BWD_BF16_KERNEL} check {shape}: max abs err dq/dk/dv "
+              f"{[f'{e:.3g}' for e in errs]}, worst over the largest |plain| "
+              f"{worst:.3g} (tol {TRAIN_GRAD_TOL_BF16:.3g}); SDPA's bf16 "
+              f"backward against the same plain version {sdpa_worst:.3g}; "
+              f"bit-equal on a second call", flush=True)
+        if not worst <= TRAIN_GRAD_TOL_BF16:
+            fail(f"{FK.BWD_BF16_KERNEL} disagrees with its plain version: "
+                 f"{worst} of the largest magnitude ({shape})")
+        del want
+        t_b, by = bound(2 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel()
+                             + 2 * out.numel()) + 4 * lse.numel(),
+                        2 * (3 * Dh + 2 * Dv) * pairs, hw.PEAK_FLOPS_BF16)
+        plain_ms = time_ms(lambda: FR.flash_attention_bwd_ref(
+            q, k, v, out, lse, do, causal=True, scale=scale), 3)
+        device_ms, passes = _bwd_passes(
+            bwd, FK.BWD_BF16_KERNEL,
+            ("delta_bf16_kernel", "dkdv_bf16_kernel", "dq_bf16_kernel"))
+        rows.append({
+            "name": FK.BWD_BF16_KERNEL, "at": at, "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention_bwd_bf16.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:70",
+            "max_abs_err": max(errs), "ms": time_ms(bwd, 10),
+            "plain_ms": plain_ms, "bound_ms": t_b, "bound_by": by,
+            "library_ms": time_ms(sdpa_fwd_bwd, 5) - sdpa_fwd_ms,
+            "device_ms": device_ms, "pass_device_ms": passes,
+            "err_of_largest": worst, "sdpa_err_of_largest": sdpa_worst,
+            "shape": f"{shape}; library: SDPA bf16 forward + backward minus "
+                     f"its forward, K/V repeated to {H} heads"})
+        del q, k, v, do, out, lse, qt, kt, vt, dot, kr, vr, leaves
+
+    cfg = get_config(LM_ARCH)
+    T, d, E = PREFILL_BATCH * PREFILL_LEN, cfg.d_model, cfg.num_experts
+    kk = cfg.experts_per_token
+    C = capacity_per_expert(T, E, kk, cfg.capacity_factor)
+    x = torch.randn((T, d), generator=gen, device=dev)
+    router = torch.randn((d, E), generator=gen, device=dev) / d ** 0.5
+    topk_idx, _, _ = _route({"router": router}, x, cfg)
+    slot = MO.expert_slots(topk_idx, E)
+    buf = torch.randn((E, C, d), generator=gen, device=dev).bfloat16()
+    dy = torch.randn((T, d), generator=gen, device=dev).bfloat16()
+
+    def wgrad():
+        return MK.moe_combine_weight_grad(dy, buf, topk_idx, slot)
+
+    got = wgrad()
+    want = MR.combine_weight_grad_ref(dy, buf, topk_idx, slot)
+    err = float((got - want).abs().max())
+    print(f"moe_combine_weight_grad check on bf16 buf and dy: dtype "
+          f"{got.dtype}, max abs err {err:.3g} (tol {WGRAD_TOL} of "
+          f"{float(want.abs().max()):.3g})", flush=True)
+    if got.dtype != torch.float32 or \
+            not err <= WGRAD_TOL * float(want.abs().max()):
+        fail(f"moe_combine_weight_grad on bf16 disagrees with its plain "
+             f"version by {err} (largest |plain| {float(want.abs().max())})")
+    keep = slot < C
+    kept = int(keep.sum())
+    flat = buf.reshape(E * C, d)
+    rows_k = torch.where(keep, topk_idx * C + slot, 0).reshape(-1)
+
+    def library():  # index_select · mul · sum, dropped slots zeroed
+        g = torch.index_select(flat, 0, rows_k).view(T, kk, d)
+        return (g.float() * dy.float()[:, None]).sum(-1) * keep
+
+    t_b, by = bound(2 * (T * d + kept * d) + 4 * T * kk, 2 * kept * d)
+    rows.append({"name": "moe_combine_weight_grad", "at": TRAIN_AT_BF16,
+                 "route": "cuda",
+                 "source": "src/repro_torch/csrc/moe_dispatch.cu",
+                 "replaces": "src/repro/kernels/moe_dispatch/kernel.py:98",
+                 "max_abs_err": err, "ms": time_ms(wgrad),
+                 "plain_ms": time_ms(lambda: MR.combine_weight_grad_ref(
+                     dy, buf, topk_idx, slot)),
+                 "bound_ms": t_b, "bound_by": by,
+                 "library_ms": time_ms(library),
+                 "shape": f"T={T}, k={kk}, d={d}, E={E}, C={C}, bfloat16 buf "
+                          f"and dy, float32 weights, {kept} routed rows"})
     return rows
 
 
@@ -2440,7 +2662,9 @@ def train_phase(seed: int, profile: bool = False):
     gradient, a third loss not below the first, or a restarted fourth step
     that differs from the uninterrupted one (its loss bit for bit, the
     parameters within 1e-6: the card sums the embedding's gradient with
-    atomics, in any order).  Returns (report, launch counts)."""
+    atomics, in any order).  Then, on the emptied card, the same steps in
+    bf16 (:func:`train_bf16_run`).  Returns (report, launch counts of each
+    run: ``{"float32": ..., "bfloat16": ...}``)."""
     import dataclasses
     import shutil
 
@@ -2619,15 +2843,125 @@ def train_phase(seed: int, profile: bool = False):
     del params, state, after, template
     gc.collect()
     torch.cuda.empty_cache()
+    report["bf16"], bf16_launches = train_bf16_run(
+        dev, seed, cfg, batch, steps[0]["loss"], flops, profile)
+    return report, {"float32": launches, "bfloat16": bf16_launches}
+
+
+#: the bf16 run's first loss against the float32 run's (the same weights
+#: before the bf16 rounding), relative
+TRAIN_BF16_LOSS_RTOL = 2e-2
+
+
+def train_bf16_run(dev, seed: int, cfg, batch, f32_loss: float,
+                   flops: float, profile: bool = False):
+    """Phase 8's bf16 run: the float32 run's cut and batch, its initial
+    weights rounded to bf16 (``init_model`` draws in float32 and rounds;
+    the router stays float32), AdamW at ``TRAIN_LR`` with float32 state,
+    the reference's default policy, ``TRAIN_STEPS`` + 1 steps, no
+    checkpoint.  Counters from 0 before the first step.  Fails on a loss
+    that is not finite, a parameter without a gradient, a last loss not
+    below the first, a first loss farther than ``TRAIN_BF16_LOSS_RTOL``
+    from the float32 run's, or a step that launched no bf16 forward with
+    its logsumexp or no bf16 backward.  With ``profile``, the last step is
+    traced.  Returns (report, launch counts)."""
+    import contextlib
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile as trace
+
+    from repro_torch import device as D
+    from repro_torch.models import init_model
+    from repro_torch.roofline import hw
+    from repro_torch.train.optimizer import adamw
+    from repro_torch.train.trainer import default_policy, make_train_step
+    from repro_torch.train.tree import tree_leaves
+
+    t0 = time.perf_counter()
+    params = init_model(torch.Generator(device=dev).manual_seed(seed), cfg,
+                        torch.bfloat16, device=dev)
+    for p in tree_leaves(params):
+        p.requires_grad_(True)
+    dtypes = sorted({str(p.dtype) for p in tree_leaves(params)})
+    opt = adamw(lr=TRAIN_LR)
+    state = opt.init(params)
+    step = make_train_step(cfg, opt, default_policy(cfg))
+    torch.cuda.synchronize()
+    print(f"train bf16 model: {cfg.name} at {cfg.num_layers} layers, the "
+          f"float32 run's initial weights rounded to bf16 (leaf dtypes "
+          f"{dtypes}), AdamW state float32 "
+          f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB), made in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    n_tok = PREFILL_BATCH * PREFILL_LEN
+    torch.cuda.reset_peak_memory_stats()
+    D.reset_launch_counts()
+    steps = []
+    for i in range(1, TRAIN_STEPS + 2):
+        traced = profile and i == TRAIN_STEPS + 1
+        with (trace(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+              if traced else contextlib.nullcontext()) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, batch)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        if traced:
+            print_profile(f"train bf16 step {i} (traced)", prof, dt * 1e6,
+                          top=32)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        if not np.isfinite(loss):
+            fail(f"bf16 training step {i}: loss {loss}")
+        _grads_set(params)
+        rec = {"step": i, "loss": loss, "grad_norm": gnorm, "s": dt,
+               "tokens_per_s": n_tok / dt, "traced": traced,
+               "bf16_peak_share": flops / hw.PEAK_FLOPS_BF16 / dt}
+        steps.append(rec)
+        print(f"train bf16 step {i}: loss {loss:.6f}, grad norm "
+              f"{gnorm:.4f}, {dt:.3f} s, {rec['tokens_per_s']:.0f} tokens/s, "
+              f"model flops at {rec['bf16_peak_share']:.2%} of the bf16 "
+              f"peak" + (" (traced)" if traced else ""), flush=True)
+    launches = D.launch_counts()
+    report = {"steps": steps, "peak_bytes": torch.cuda.max_memory_allocated(),
+              "launches": launches, "leaf_dtypes": dtypes,
+              "first_loss_rel_to_f32": abs(steps[0]["loss"] - f32_loss)
+              / abs(f32_loss)}
+    per_step = {k: v / len(steps) for k, v in launches.items() if v}
+    print(f"train bf16 peak device memory {report['peak_bytes'] / 2**30:.2f} "
+          f"GiB; first loss {steps[0]['loss']!r} against the float32 run's "
+          f"{f32_loss!r} ({report['first_loss_rel_to_f32']:.3g} relative, "
+          f"tol {TRAIN_BF16_LOSS_RTOL}); launches a step {per_step}",
+          flush=True)
+    if not report["first_loss_rel_to_f32"] <= TRAIN_BF16_LOSS_RTOL:
+        fail("bf16 training: the first loss is too far from the float32 "
+             "run's")
+    if not steps[-1]["loss"] < steps[0]["loss"]:
+        fail(f"bf16 training: the last loss {steps[-1]['loss']} is not "
+             f"below the first {steps[0]['loss']} on a repeated batch")
+    for k in ("flash_attention_lse", "flash_attention_bwd_bf16",
+              "moe_dispatch", "moe_combine", "moe_combine_weight_grad"):
+        if launches[k] < len(steps):
+            fail(f"bf16 training: kernel {k} launched {launches[k]} times in "
+                 f"{len(steps)} steps ({launches})")
+    del params, state
+    gc.collect()
+    torch.cuda.empty_cache()
     return report, launches
+
+
+def train_row_launches(rows, launches) -> None:
+    """Each training row's launches: the float32 run's for rows at
+    ``TRAIN_AT``, the bf16 run's for the others."""
+    for r in rows:
+        run = "float32" if r["at"] == TRAIN_AT else "bfloat16"
+        r["launches"] = launches[run][r["name"]]
 
 
 def train_calls(dev, seed: int, profile: bool = False) -> dict:
     """``--only train``: phase 2's training rows, then phase 8."""
     rows = train_kernel_phase(dev, seed)
     report, launches = train_phase(seed, profile)
-    for r in rows:
-        r["launches"] = launches[r["name"]]
+    train_row_launches(rows, launches)
     return {"train": report, "kernels": rows}
 
 
@@ -2948,14 +3282,14 @@ def main() -> None:
           f"{PREFILL_LEN} tokens (prefill) and {SERVE_REQUESTS} requests of "
           f"{SERVE_PROMPT} + {SERVE_NEW} new tokens (serving); training "
           f"(phase 8): {LM_ARCH} at {TRAIN_LAYERS} of 32 layers (full "
-          f"width), float32, random weights, {TRAIN_STEPS} + 1 AdamW steps "
-          f"(lr {TRAIN_LR}) of {PREFILL_BATCH} x {PREFILL_LEN} tokens on "
-          f"the pipeline's "
-          f"first batch repeated, recomputation per period (the "
-          f"reference's default policy)", flush=True)
+          f"width), float32 and then bf16, random weights, {TRAIN_STEPS} + "
+          f"1 AdamW steps (lr {TRAIN_LR}) of {PREFILL_BATCH} x {PREFILL_LEN} "
+          f"tokens on the pipeline's first batch repeated, recomputation "
+          f"per period (the reference's default policy)", flush=True)
     t0 = time.perf_counter()
     libs = ("segment_join", "multikey_sort", "flash_attention",
-            "flash_attention_sm90", "flash_attention_bwd", "moe_dispatch")
+            "flash_attention_sm90", "flash_attention_bwd",
+            "flash_attention_bwd_bf16", "moe_dispatch")
     if args.only in ("moe-dispatch", "moe-layer"):
         libs = ("moe_dispatch",)
     elif args.only in ("join-build", "join-probe", "segment-sum", "sharded"):
@@ -3087,8 +3421,7 @@ def main() -> None:
     for r in lm_rows:  # each row's launches from its model's run
         r["launches"] = (f32_launches if r["name"] == "flash_attention_f32"
                          else lm_launches[r["at"]])[r["name"]]
-    for r in train_rows:
-        r["launches"] = train_launches[r["name"]]
+    train_row_launches(train_rows, train_launches)
     rows += lm_rows + train_rows
     for r in rows:
         if r["launches"] <= 0:

@@ -48,7 +48,14 @@
 //     every tile): exact, as in the float32 kernel.  The per-element mask runs
 //     only on tiles that cross the diagonal, the window's edge or Sk;
 //   * the epilogue divides by l and stores bf16 pairs straight from the
-//     fragment; rows past Sq and columns past Dv are not stored.
+//     fragment; rows past Sq and columns past Dv are not stored.  The
+//     training path's instantiation (template flag kLse, entry
+//     repro_flash_attention_sm90_lse) also stores each row's logsumexp
+//     L = m + log(l), one float32 a row, in the units the float32 kernel
+//     writes and csrc/flash_attention_bwd_bf16.cu reads: the natural log of
+//     the scaled, capped scores (m is kept in those units; only the
+//     exponentials go through exp2f), +inf for a row that sees no key.
+//     The serving instantiation (kLse false) holds none of it.
 //
 // Shared memory: a 128 x D tile of Q, and per stage BN x D of K and BN x Dv
 // of V, each padded to whole 64-column tiles: 161 KB at D = Dv = 128 (BN
@@ -89,6 +96,7 @@ struct Params {
   float cap;              // 0: none
   float scale;
   long long q_offset;
+  float* lse;             // [B, H, Sq] float32 (the kLse instantiation)
 };
 
 // ---------------------------------------------------------------------------
@@ -267,8 +275,9 @@ __device__ __forceinline__ bool row_sees_a_key(long long qpos,
 }
 
 // BN: keys per K/V tile (128, or 64 when D or Dv is above 128); ND, NV: D
-// in 64-column tiles and Dv rounded up to whole 64-column tiles.
-template <int BN, int ND, int NV>
+// in 64-column tiles and Dv rounded up to whole 64-column tiles; kLse: also
+// store each row's logsumexp.
+template <int BN, int ND, int NV, bool kLse>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                             const __grid_constant__ CUtensorMap tk,
@@ -483,6 +492,14 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tq,
           *reinterpret_cast<uint32_t*>(out + qi1 * p.os + col) =
               pack_bf16(o[c][4 * t + 2] / den1, o[c][4 * t + 3] / den1);
       }
+    if constexpr (kLse) {
+      // the quad's four lanes hold the same m and l; lane col0 == 0 stores
+      if (col0 == 0) {
+        float* lse = p.lse + (static_cast<long long>(b) * p.H + h) * p.Sq;
+        if (qi0 < p.Sq) lse[qi0] = m0 == kMasked ? INFINITY : m0 + logf(l0);
+        if (qi1 < p.Sq) lse[qi1] = m1 == kMasked ? INFINITY : m1 + logf(l1);
+      }
+    }
   }
 }
 
@@ -551,8 +568,8 @@ struct Launch {
   cudaStream_t stream;
 };
 
-template <int BN, int ND, int NV>
-int launch(const Launch& a) {
+template <int BN, int ND, int NV, bool kLse>
+int launch_one(const Launch& a) {
   const Params& p = *a.p;
   CUtensorMap tk, tv;
   int rc = make_map(&tk, a.k, p.D, p.KH, p.Sk, a.B, a.kh, a.ks, a.kb, BN);
@@ -562,13 +579,20 @@ int launch(const Launch& a) {
   const size_t smem = 1024 + static_cast<size_t>(kTileBytes) *
       (ND * kBM + kStages * (ND + NV / 64) * BN);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_sm90_kernel<BN, ND, NV>,
+      flash_attention_sm90_kernel<BN, ND, NV, kLse>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((p.Sq + kBM - 1) / kBM, p.H, a.B);
-  flash_attention_sm90_kernel<BN, ND, NV>
+  flash_attention_sm90_kernel<BN, ND, NV, kLse>
       <<<grid, kThreads, smem, a.stream>>>(*a.tq, tk, tv, p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the serving instantiation, or the one that stores the logsumexp
+template <int BN, int ND, int NV>
+int launch(const Launch& a) {
+  return a.p->lse != nullptr ? launch_one<BN, ND, NV, true>(a)
+                             : launch_one<BN, ND, NV, false>(a);
 }
 
 // K/V tiles of 128 keys where D and Dv fit two 64-column tiles each, else
@@ -595,21 +619,23 @@ extern "C" {
 // contiguous, the pointers and the other strides 16-byte aligned; D and Dv
 // multiples of 16 up to 256.  Returns 0, a cudaError_t, or a negative code
 // when a TMA descriptor cannot be built (repro_flash_sm90_error_string).
-int repro_flash_attention_sm90(const void* q, const void* k, const void* v,
-                               void* out, int B, int Sq, int Sk, int H,
-                               int KH, int D, int Dv, long long qb,
-                               long long qs, long long qh, long long kb,
-                               long long ks, long long kh, long long vb,
-                               long long vs, long long vh, long long ob,
-                               long long os, long long oh, int causal,
-                               int window, float cap, float scale,
-                               long long q_offset, void* stream) {
+// lse: null, or [B, H, Sq] float32 contiguous (repro_flash_attention_sm90_lse).
+int repro_flash_attention_sm90_lse(const void* q, const void* k,
+                                   const void* v, void* out, int B, int Sq,
+                                   int Sk, int H, int KH, int D, int Dv,
+                                   long long qb, long long qs, long long qh,
+                                   long long kb, long long ks, long long kh,
+                                   long long vb, long long vs, long long vh,
+                                   long long ob, long long os, long long oh,
+                                   int causal, int window, float cap,
+                                   float scale, long long q_offset,
+                                   float* lse, void* stream) {
   if (D < 16 || D > kMaxD || D % 16 || Dv < 16 || Dv > kMaxD || Dv % 16 ||
       KH < 1 || H % KH != 0 || Sk < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || Sq == 0) return 0;
   Params p{out, Sq, Sk, H, KH, D, Dv, ob, os, oh, causal, window, cap, scale,
-           q_offset};
+           q_offset, lse};
   CUtensorMap tq;
   int rc = make_map(&tq, q, D, H, Sq, B, qh, qs, qb, kBM);
   if (rc != 0) return rc;
@@ -621,6 +647,21 @@ int repro_flash_attention_sm90(const void* q, const void* k, const void* v,
     case 3: return launch_nd<3>(args);
     default: return launch_nd<4>(args);
   }
+}
+
+int repro_flash_attention_sm90(const void* q, const void* k, const void* v,
+                               void* out, int B, int Sq, int Sk, int H,
+                               int KH, int D, int Dv, long long qb,
+                               long long qs, long long qh, long long kb,
+                               long long ks, long long kh, long long vb,
+                               long long vs, long long vh, long long ob,
+                               long long os, long long oh, int causal,
+                               int window, float cap, float scale,
+                               long long q_offset, void* stream) {
+  return repro_flash_attention_sm90_lse(q, k, v, out, B, Sq, Sk, H, KH, D, Dv,
+                                        qb, qs, qh, kb, ks, kh, vb, vs, vh,
+                                        ob, os, oh, causal, window, cap, scale,
+                                        q_offset, nullptr, stream);
 }
 
 const char* repro_flash_sm90_error_string(int code) {

@@ -17,15 +17,26 @@ strides, so no transpose is made.  Two kernels serve it, chosen by dtype in
   float32 tolerance; D and Dv up to 256, any element strides.  Launch
   counter ``flash_attention_f32``.
 
-With ``return_lse=True`` (the training path; float32 only) the float32
-kernel also writes each row's logsumexp ``[B, H, Sq]`` (+inf for a row
-with no visible key), which :func:`flash_attention_bwd` reads:
-``csrc/flash_attention_bwd.cu``, every product on the tensor cores
-(``mma.sync`` TF32 in the 3xTF32 split), dK/dV per key tile summed over
-the GQA group and dQ per query tile, no atomics, so the same bits on every
-run (launch counter ``flash_attention_bwd_f32``, one a call for its three
-kernels), whose ``dq``, ``dk``, ``dv`` come back contiguous in q's, k's
-and v's layouts.
+With ``return_lse=True`` (the training path) the kernel also writes each
+row's logsumexp ``[B, H, Sq]`` float32 (the natural log of the scaled,
+capped scores; +inf for a row with no visible key): the float32 kernel
+through its ``repro_flash_attention_lse`` entry (counter
+``flash_attention_f32`` still), the bf16 one through the instantiation
+with the logsumexp epilogue, ``repro_flash_attention_sm90_lse`` (counter
+``flash_attention_lse``; the serving instantiation is untouched).
+:func:`flash_attention_bwd` reads it, with the backward kernel of q's
+dtype, both with dK/dV per key tile summed over the GQA group and dQ per
+query tile, no atomics, so the same bits on every run, one launch count a
+call for their three kernels:
+
+* float32: ``csrc/flash_attention_bwd.cu`` (``mma.sync`` TF32 in the
+  3xTF32 split; counter ``flash_attention_bwd_f32``), float32 gradients;
+* bfloat16: ``csrc/flash_attention_bwd_bf16.cu`` (``mma.sync`` bf16 with
+  float32 accumulators; counter ``flash_attention_bwd_bf16``), bf16
+  gradients; every pointer and stride 16-byte aligned, as the bf16
+  forward needs.
+
+The gradients come back contiguous in q's, k's and v's layouts.
 
 What neither kernel takes raises ``ValueError``; nothing falls back to the
 other kernel or to the plain version.  The wrapper allocates the output with
@@ -45,14 +56,18 @@ from ...device import (count_launch, device_guard, kernel_library,
                        stream_handle)
 
 __all__ = ["flash_attention_fwd", "flash_attention_bwd", "select_kernel",
-           "tma_strides", "nokey_from", "MAX_HEAD_DIM", "TENSOR_CORE_KERNEL",
-           "F32_KERNEL", "BWD_KERNEL"]
+           "tma_strides", "aligned16", "nokey_from", "MAX_HEAD_DIM",
+           "TENSOR_CORE_KERNEL", "F32_KERNEL", "LSE_KERNEL", "BWD_KERNEL",
+           "BWD_BF16_KERNEL"]
 
 MAX_HEAD_DIM = 256
-#: launch-counter names of the two kernels
+#: launch-counter names of the kernels: the two forwards, the bf16
+#: forward's instantiation that writes the logsumexp, the two backwards
 TENSOR_CORE_KERNEL = "flash_attention"
 F32_KERNEL = "flash_attention_f32"
+LSE_KERNEL = "flash_attention_lse"
 BWD_KERNEL = "flash_attention_bwd_f32"
+BWD_BF16_KERNEL = "flash_attention_bwd_bf16"
 _DTYPES = (torch.float32, torch.bfloat16)
 _I32 = 2 ** 31
 
@@ -82,22 +97,33 @@ def _entry(name: str):
     return fn, errors
 
 
-def _lse_entry():
-    """``repro_flash_attention_lse``: the float32 kernel's entry with the
-    ``lse`` pointer before the stream."""
-    lib = kernel_library("flash_attention")
-    fn = lib.repro_flash_attention_lse
+def _lse_entry(name: str):
+    """The entry of kernel ``name`` (float32 or bf16) that also writes the
+    logsumexp: its arguments with the ``lse`` pointer before the stream."""
+    stem, fn_name, _ = _ENTRIES[name]
+    fn = getattr(kernel_library(stem), fn_name + "_lse")
     if fn.argtypes is None:
         p, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                        ctypes.c_float)
         fn.argtypes = [p] * 4 + [i] * 7 + [ll] * 12 + [i, i, f, f, ll, p, p]
         fn.restype = i
-    return fn, _entry(F32_KERNEL)[1]
+    return fn, _entry(name)[1]
 
 
-def _bwd_entry():
-    lib = kernel_library("flash_attention_bwd")
-    fn, errors = lib.repro_flash_attention_bwd, lib.repro_flash_bwd_error_string
+#: backward launch-counter name -> (source stem, C entry, error strings)
+_BWD_ENTRIES = {
+    BWD_KERNEL: ("flash_attention_bwd", "repro_flash_attention_bwd",
+                 "repro_flash_bwd_error_string"),
+    BWD_BF16_KERNEL: ("flash_attention_bwd_bf16",
+                      "repro_flash_attention_bwd_bf16",
+                      "repro_flash_bwd_bf16_error_string"),
+}
+
+
+def _bwd_entry(name: str):
+    stem, fn_name, err_name = _BWD_ENTRIES[name]
+    lib = kernel_library(stem)
+    fn, errors = getattr(lib, fn_name), getattr(lib, err_name)
     if fn.argtypes is None:
         p, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                        ctypes.c_float)
@@ -120,6 +146,14 @@ def tma_strides(t: torch.Tensor) -> Tuple[int, int, int]:
     ss = ss if S > 1 else Hd * sh
     sb = sb if B > 1 else S * ss
     return sb, ss, sh
+
+
+def aligned16(t: torch.Tensor) -> bool:
+    """Whether ``t``'s base address and the strides of its leading
+    dimensions (:func:`tma_strides`) are whole 16 bytes: the bf16 kernels'
+    rule (TMA in the forward, 16-byte copies in the backward)."""
+    return t.data_ptr() % 16 == 0 and not any(
+        s * t.element_size() % 16 for s in tma_strides(t))
 
 
 def _check_layout(t, what: str, dtype=None) -> None:
@@ -183,17 +217,14 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q ``[B, Sq, H, D]``; k ``[B, Sk, KH, D]``; v ``[B, Sk, KH, Dv]``
     (one dtype, float32 or bfloat16) → ``[B, Sq, H, Dv]`` in q's dtype.
     Query row i sits at position ``q_offset + i``; kv head ``h // (H //
-    KH)`` serves query head h.  With ``return_lse`` (float32 only) →
-    ``(out, lse)``, lse ``[B, H, Sq]`` float32."""
+    KH)`` serves query head h.  With ``return_lse`` → ``(out, lse)``, lse
+    ``[B, H, Sq]`` float32."""
     for t, what in ((q, "q"), (k, "k"), (v, "v")):
         if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
             raise ValueError(f"{what}: expected a CUDA tensor")
     if q.device != k.device or q.device != v.device:
         raise ValueError("q, k and v must be on one device")
     name = select_kernel(q, k, v)
-    if return_lse and name != F32_KERNEL:
-        raise ValueError(f"only the float32 kernel writes the logsumexp, "
-                         f"not the {q.dtype} one")
     if window is not None and window < 1:
         raise ValueError(f"window must be positive, got {window}")
     if q_offset < 0:
@@ -208,8 +239,10 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     opts = (int(bool(causal)), int(window or 0), float(cap or 0.0),
             float(scale), int(q_offset))
     if return_lse:
-        fn, errors = _lse_entry()
+        fn, errors = _lse_entry(name)
         tail = (lse.data_ptr(), stream_handle(q.device))
+        if name == TENSOR_CORE_KERNEL:
+            name = LSE_KERNEL
     else:
         fn, errors = _entry(name)
         tail = (stream_handle(q.device),)
@@ -242,25 +275,31 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         cap: Optional[float] = None, scale: float,
                         q_offset: int = 0):
     """The gradients ``(dq, dk, dv)`` of :func:`flash_attention_fwd`'s
-    float32 output for ``dout`` ``[B, Sq, H, Dv]``, given the forward's
-    ``out`` and ``lse``; contiguous, in q's, k's and v's shapes.  Inputs at
-    any strides with a contiguous last dimension."""
+    output for ``dout`` ``[B, Sq, H, Dv]``, given the forward's ``out``
+    and ``lse`` (float32); in q's dtype (the float32 or the bf16 backward
+    kernel), contiguous, in q's, k's and v's shapes.  Inputs at any strides
+    with a contiguous last dimension; bf16 ones 16-byte aligned
+    (:func:`aligned16`)."""
     for t, what in ((q, "q"), (k, "k"), (v, "v"), (out, "out"),
                     (lse, "lse"), (dout, "dout")):
         if not isinstance(t, torch.Tensor) or t.device != q.device or \
                 t.device.type != "cuda":
             raise ValueError(f"{what}: expected a CUDA tensor on q's device")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{what}: the backward kernel takes float32, "
+        want = torch.float32 if what == "lse" else q.dtype
+        if t.dtype != want:
+            raise ValueError(f"{what}: the backward kernel takes {want}, "
                              f"got {t.dtype}")
-    if select_kernel(q, k, v) != F32_KERNEL:
-        raise ValueError("the backward kernel takes float32 q, k, v")
+    name = (BWD_KERNEL if select_kernel(q, k, v) == F32_KERNEL
+            else BWD_BF16_KERNEL)
     B, Sq, H, D = q.shape
     Sk, KH, Dv = k.shape[1], k.shape[2], v.shape[3]
     for t, what in ((out, "out"), (dout, "dout")):
         if tuple(t.shape) != (B, Sq, H, Dv) or t.stride(-1) != 1:
             raise ValueError(f"{what}: expected ({B}, {Sq}, {H}, {Dv}) with "
                              f"a contiguous last dimension")
+        if name == BWD_BF16_KERNEL and not aligned16(t):
+            raise ValueError(f"{what}: the bf16 backward needs a 16-byte-"
+                             f"aligned base and strides, got {t.stride()}")
     if tuple(lse.shape) != (B, H, Sq) or not lse.is_contiguous():
         raise ValueError(f"lse: expected contiguous ({B}, {H}, {Sq})")
     if Sk < 1:
@@ -268,14 +307,14 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if window is not None and window < 1:
         raise ValueError(f"window must be positive, got {window}")
     dev = q.device
-    dq = torch.empty((B, Sq, H, D), dtype=torch.float32, device=dev)
-    dk = torch.empty((B, Sk, KH, D), dtype=torch.float32, device=dev)
-    dv = torch.empty((B, Sk, KH, Dv), dtype=torch.float32, device=dev)
+    dq = torch.empty((B, Sq, H, D), dtype=q.dtype, device=dev)
+    dk = torch.empty((B, Sk, KH, D), dtype=q.dtype, device=dev)
+    dv = torch.empty((B, Sk, KH, Dv), dtype=q.dtype, device=dev)
     if B == 0 or Sq == 0:
         return dq, dk.zero_(), dv.zero_()
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
     nk = nokey_from(Sq, Sk, causal=causal, window=window, q_offset=q_offset)
-    fn, errors = _bwd_entry()
+    fn, errors = _bwd_entry(name)
     with device_guard(dev):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
@@ -285,7 +324,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 int(bool(causal)), int(window or 0), float(cap or 0.0),
                 float(scale), int(q_offset), nk, stream_handle(dev))
     if rc != 0:
-        raise RuntimeError(f"{BWD_KERNEL} kernel launch failed: error {rc} "
+        raise RuntimeError(f"{name} kernel launch failed: error {rc} "
                            f"({errors(rc).decode()})")
-    count_launch(BWD_KERNEL)
+    count_launch(name)
     return dq, dk, dv

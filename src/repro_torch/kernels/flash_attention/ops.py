@@ -16,13 +16,14 @@ version's tiles.
 Gradients.  On the CPU autograd runs through the plain version.  On the
 card, a call that needs a gradient (grad mode on and q, k or v requiring
 one) goes through :class:`FlashAttention`, an ``autograd.Function`` whose
-forward is the float32 kernel writing each row's logsumexp and whose
-backward is the backward kernel (``csrc/flash_attention_bwd.cu``: the
-3xTF32 split on the tensor cores, no atomics, the same bits every run).  A
-bfloat16 call that needs a gradient raises ``NotImplementedError``: the
-bf16 kernel writes no logsumexp yet (ROADMAP Queue 2 item 14).  A call
-that needs none (serving, under ``torch.no_grad()``) launches the forward
-kernel alone, as before.
+forward is the kernel of q's dtype writing each row's logsumexp and whose
+backward is the backward kernel of that dtype, no atomics, the same bits
+every run: float32 runs ``csrc/flash_attention.cu``'s logsumexp entry and
+``csrc/flash_attention_bwd.cu`` (the 3xTF32 split on the tensor cores),
+bfloat16 the logsumexp instantiation of ``csrc/flash_attention_sm90.cu``
+and ``csrc/flash_attention_bwd_bf16.cu`` (bf16 ``mma.sync`` with float32
+accumulators; the gradients in bf16).  A call that needs none (serving,
+under ``torch.no_grad()``) launches the forward kernel alone, as before.
 
 On a mesh.  DTensor inputs never reach a kernel's extension call: they
 run through ``local_map`` (:func:`_sharded`), each rank's call the ordinary
@@ -49,16 +50,11 @@ __all__ = ["flash_attention", "FlashAttention"]
 
 
 class FlashAttention(torch.autograd.Function):
-    """The card's differentiable attention: the float32 forward kernel
-    with its row logsumexp, and the backward kernel."""
+    """The card's differentiable attention: the forward kernel of q's
+    dtype with its row logsumexp, and the backward kernel of that dtype."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, cap, scale, q_offset):
-        if q.dtype != torch.float32:
-            raise NotImplementedError(
-                f"no backward for {q.dtype} flash attention on the card: "
-                f"the bf16 kernel writes no logsumexp yet (ROADMAP Queue 2 "
-                f"item 14); train in float32")
         out, lse = _k.flash_attention_fwd(q, k, v, causal=causal,
                                           window=window, cap=cap,
                                           scale=scale, q_offset=q_offset,
@@ -71,7 +67,8 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        if dout.stride(-1) != 1:
+        if dout.stride(-1) != 1 or (dout.dtype == torch.bfloat16
+                                    and not _k.aligned16(dout)):
             dout = dout.contiguous()
         dq, dk, dv = _k.flash_attention_bwd(q, k, v, out, lse, dout,
                                             **ctx.opts)

@@ -7,8 +7,11 @@ the port's engine), the trainer, checkpoints with resume.
 The counterpart of ``src/repro/launch/train.py``, with its flags plus
 ``--device`` (the CUDA card by default; ``cpu`` runs the plain versions of
 the kernels), ``--layers`` (cut the model to its first N layers) and
-``--dtype`` (float32 by default, as the reference trains).  Weights are
-random, drawn from a ``torch.Generator`` seeded with 0.
+``--dtype`` (float32 by default, as the reference trains; ``bfloat16``
+trains bf16 parameters with float32 optimizer state, on the card through
+the bf16 attention forward with its logsumexp and the bf16 backward
+kernel).  Weights are random, drawn from a ``torch.Generator`` seeded
+with 0.
 """
 from __future__ import annotations
 

@@ -1251,20 +1251,21 @@ _BWD_CASES = [
 ]
 
 
-def _bwd_inputs(case, dev, fused: bool):
-    """q, k, v, dO and the options of a ``_BWD_CASES``-style case; with
-    ``fused``, q, k and v are strided views of one ``[B, S, (H + 2 KH) D]``
-    projection (Sq = Sk, D = Dv)."""
+def _bwd_inputs(case, dev, fused: bool, dtype=torch.float32):
+    """q, k, v, dO (in ``dtype``) and the options of a ``_BWD_CASES``-style
+    case; with ``fused``, q, k and v are strided views of one ``[B, S, (H +
+    2 KH) D]`` projection (Sq = Sk, D = Dv)."""
     B, Sq, Sk, H, KH, D, Dv, causal, window, cap, q_offset = case
     g = torch.Generator().manual_seed(0)
     if fused:
-        qkv = torch.randn(B, Sq, (H + 2 * KH) * D, generator=g).to(dev)
+        qkv = torch.randn(B, Sq, (H + 2 * KH) * D, generator=g).to(dev,
+                                                                    dtype)
         q, k, v = qkv.split([H * D, KH * D, KH * D], dim=-1)
         q, k, v = (t.unflatten(-1, (-1, D)) for t in (q, k, v))
     else:
-        q, k, v = [torch.randn(s, generator=g).to(dev) for s in
+        q, k, v = [torch.randn(s, generator=g).to(dev, dtype) for s in
                    ((B, Sq, H, D), (B, Sk, KH, D), (B, Sk, KH, Dv))]
-    do = torch.randn((B, Sq, H, Dv), generator=g).to(dev)
+    do = torch.randn((B, Sq, H, Dv), generator=g).to(dev, dtype)
     opts = dict(causal=causal, window=window, cap=cap, scale=D ** -0.5,
                 q_offset=q_offset)
     return q, k, v, do, opts
@@ -1420,17 +1421,214 @@ def test_train_gradients_on_card_match_cpu(dev, arch):
                                    atol=1e-5 * scale, msg=str(path))
 
 
-def test_bf16_attention_that_needs_a_gradient_raises(dev):
-    """No bf16 backward yet: the call raises in the forward, naming the
-    ROADMAP item; under ``torch.no_grad()`` (serving) it runs."""
+#: the bf16 kernels' cases (D and Dv multiples of 16): D 64, 128 and MLA's
+#: 192/128, causal, window, cap, q_offset, GQA; and (fused) strided views
+#: of one fused projection
+_BF16_BWD_CASES = [
+    ((2, 64, 64, 4, 2, 64, 64, True, None, None, 0), False),
+    ((2, 100, 70, 8, 2, 64, 64, True, None, None, 30), False),
+    ((1, 77, 130, 4, 4, 192, 128, True, None, None, 53), False),   # MLA
+    ((2, 96, 48, 8, 2, 64, 64, True, 9, 30.0, 20), False),  # rows see no key
+    ((2, 80, 90, 4, 1, 128, 128, False, 7, None, 3), False),
+    ((1, 64, 40, 4, 2, 256, 256, False, None, 50.0, 0), False),
+    ((2, 256, 256, 32, 8, 128, 128, True, None, None, 0), False),  # Phi's
+    ((1, 133, 131, 6, 2, 128, 128, True, 50, 15.0, 5), False),
+    ((1, 45, 70, 2, 1, 192, 128, True, 33, 25.0, 31), False),
+    ((2, 50, 29, 4, 2, 64, 64, True, 6, None, 27), False),  # rows see no key
+    ((2, 77, 77, 8, 2, 64, 64, True, 40, 30.0, 0), True),
+    ((1, 130, 130, 4, 2, 128, 128, True, None, None, 0), True),
+]
+
+
+@pytest.mark.parametrize("case,fused", _BF16_BWD_CASES)
+def test_bf16_flash_attention_lse_and_backward_match_plain_versions(
+        dev, case, fused):
+    """The bf16 forward writing its logsumexp (``flash_attention_lse``):
+    its output bit-equal to the serving instantiation's, the logsumexp +inf
+    on the plain version's rows and elsewhere within 1e-3 of it; the bf16
+    backward (``flash_attention_bwd_bf16``): dq, dk, dv in bf16 within
+    2^-6 of the plain version's largest magnitude on the same inputs (P
+    and dS are rounded to bf16 as operands, the gradients stored in bf16;
+    the plain version keeps float32)."""
+    from repro_torch import device as D
+    from repro_torch.kernels.flash_attention import kernel, ref
+
+    q, k, v, do, opts = _bwd_inputs(case, dev, fused, torch.bfloat16)
+    assert fused == (not q.is_contiguous())
+    D.reset_launch_counts()
+    out, lse = kernel.flash_attention_fwd(q, k, v, return_lse=True, **opts)
+    assert torch.equal(out, kernel.flash_attention_fwd(q, k, v, **opts))
+    r_out, r_lse = ref.flash_attention_ref(q, k, v, return_lse=True, **opts)
+    fin = torch.isfinite(r_lse)
+    assert torch.equal(torch.isfinite(lse), fin)
+    torch.testing.assert_close(lse[fin], r_lse[fin], rtol=0, atol=1e-3)
+    got = kernel.flash_attention_bwd(q, k, v, out, lse, do, **opts)
+    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, **opts)
+    for a, b, t in zip(got, want, (q, k, v)):
+        assert a.dtype == torch.bfloat16 and a.shape == t.shape
+        torch.testing.assert_close(a.float(), b, rtol=0,
+                                   atol=2 ** -6 * float(b.abs().max()))
+    counts = D.launch_counts()
+    assert counts["flash_attention_lse"] == 1
+    assert counts["flash_attention_bwd_bf16"] == 1
+
+
+@pytest.mark.parametrize("case", [
+    (2, 512, 512, 32, 8, 128, 128, True, None, None, 0),
+    (1, 300, 260, 8, 2, 64, 64, True, 70, 20.0, 13),
+    (1, 96, 96, 4, 4, 192, 128, False, None, 50.0, 0),
+])
+def test_bf16_flash_attention_backward_is_deterministic(dev, case):
+    """Two calls of the bf16 backward on the same inputs give bit-equal dq,
+    dk, dv: no atomics, the GQA group summed in one block in a fixed
+    order."""
+    from repro_torch.kernels.flash_attention import kernel
+
+    q, k, v, do, opts = _bwd_inputs(case, dev, False, torch.bfloat16)
+    out, lse = kernel.flash_attention_fwd(q, k, v, return_lse=True, **opts)
+    first = kernel.flash_attention_bwd(q, k, v, out, lse, do, **opts)
+    second = kernel.flash_attention_bwd(q, k, v, out, lse, do, **opts)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_bf16_attention_with_a_gradient_runs_the_kernels(dev):
+    """A bf16 call that needs a gradient goes through ``FlashAttention``:
+    the forward with its logsumexp and the bf16 backward, gradients in
+    bf16, and a ``dout`` view that breaks the 16-byte rule copied first;
+    under ``torch.no_grad()`` (serving) the serving forward runs."""
+    from repro_torch import device as D
     from repro_torch.kernels.flash_attention.ops import flash_attention
 
     q = torch.randn(1, 32, 4, 64, device=dev, dtype=torch.bfloat16)
     k = torch.randn(1, 32, 2, 64, device=dev, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        flash_attention(q.requires_grad_(True), k, k)
+    D.reset_launch_counts()
+    q.requires_grad_(True)
+    out = flash_attention(q, k, k)
+    g = torch.randn(1, 32, 4, 72, device=dev, dtype=torch.bfloat16)
+    out.backward(g[..., 4:68])
+    assert q.grad.dtype == torch.bfloat16 and q.grad.shape == q.shape
     with torch.no_grad():
         assert flash_attention(q, k, k).shape == (1, 32, 4, 64)
+    counts = D.launch_counts()
+    assert (counts["flash_attention_lse"], counts["flash_attention_bwd_bf16"],
+            counts["flash_attention"]) == (1, 1, 1)
+
+
+def test_moe_slot_functions_in_bf16_on_card_match_cpu(dev):
+    """``DispatchSlots``/``CombineSlots`` over the kernels on bf16
+    activations with float32 routing weights: the forward and dx within a
+    bf16 rounding of the CPU's plain versions (each sums the same terms),
+    dtopk_w (float32, from bf16 dy and buffer) within 1e-5 of its largest
+    magnitude."""
+    from repro_torch.kernels.moe_dispatch import ops
+
+    rng = np.random.default_rng(4)
+    T, k, E, C, d = 300, 2, 8, 64, 96
+    idx = torch.from_numpy(np.stack([rng.permutation(E)[:k]
+                                     for _ in range(T)]))
+    x = torch.from_numpy(rng.normal(size=(T, d)).astype(np.float32))
+    w = torch.from_numpy(rng.random((T, k)).astype(np.float32))
+    gy = torch.from_numpy(rng.normal(size=(T, d)).astype(np.float32))
+    out = {}
+    for where in (dev, torch.device("cpu")):
+        xi = x.to(where, torch.bfloat16).requires_grad_(True)
+        wi = w.to(where).requires_grad_(True)
+        ii = idx.to(where)
+        slot = ops.expert_slots(ii, E)
+        buf = ops.DispatchSlots.apply(xi, ii, slot, E, C)
+        y = ops.CombineSlots.apply(buf * 2.0, ii, slot, wi)
+        (y * gy.to(where, torch.bfloat16)).sum().backward()
+        out[where.type] = [t.detach().cpu() for t in (y, xi.grad, wi.grad)]
+    for a, b in zip(out["cuda"][:2], out["cpu"][:2]):
+        assert a.dtype == b.dtype == torch.bfloat16
+        torch.testing.assert_close(a.float(), b.float(), rtol=2 ** -8,
+                                   atol=1e-6 * float(b.float().abs().max()))
+    a, b = out["cuda"][2], out["cpu"][2]
+    assert a.dtype == torch.float32
+    torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * float(b.abs().max()))
+
+
+def _rel_l2(got, want):
+    """Per-leaf and whole-tree ``‖got − want‖ / ‖want‖`` (float64)."""
+    per, num, den = [], 0.0, 0.0
+    for a, b in zip(got, want):
+        a, b = a.double().cpu(), b.double().cpu()
+        d2, w2 = float(((a - b) ** 2).sum()), float((b * b).sum())
+        per.append((d2 / w2) ** 0.5 if w2 else d2 ** 0.5)
+        num, den = num + d2, den + w2
+    return per, (num / den) ** 0.5
+
+
+@pytest.mark.parametrize("arch,hybrid", [("phi3.5-moe-42b-a6.6b", False),
+                                         ("deepseek-v2-lite-16b", False),
+                                         ("jamba-1.5-large-398b", False),
+                                         ("jamba-1.5-large-398b", True)])
+def test_bf16_train_gradients_on_card_match_cpu(dev, arch, hybrid):
+    """The bf16 training loss's backward on the card (the bf16 attention
+    forward with its logsumexp and backward kernels, the MoE kernels on
+    bf16 activations) sets every parameter's ``.grad``.  bf16 gradients
+    differ from float32 ones by 15-50% of a leaf's largest magnitude at
+    smoke size wherever they run, so they are held as relative L2 errors
+    against the CPU's float32 gradients at the same bf16-valued weights:
+    over the whole tree at most 1.25 times the CPU bf16 run's error plus
+    0.01, each leaf at most 0.3.  ``hybrid``: the >100 B hybrid's policy
+    (``default_policy``: Adafactor, gradients summed in bf16), over 2
+    microbatches, so the bf16 accumulation runs (the float32 run sums in
+    float32).  DeepSeek-V2-Lite's smoke config keeps
+    its MLA at q/k 32 (16 + 16 rope) and v 16: the bf16 kernels take head
+    dims that are multiples of 16 (the full config's 192/128 are), and
+    refuse the smoke's 24 in serving too."""
+    import dataclasses
+
+    from repro_torch import device as D
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_model
+    from repro_torch.train.optimizer import adafactor, adamw
+    from repro_torch.train.trainer import TrainPolicy, make_train_step
+    from repro_torch.train.tree import tree_leaves, tree_map, tree_paths
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config(arch)
+    if cfg.kv_lora_rank:
+        cfg = dataclasses.replace(cfg, head_dim=32, qk_nope_dim=16,
+                                  qk_rope_dim=16)
+    p16 = init_model(torch.Generator().manual_seed(0), cfg, torch.bfloat16,
+                     device="cpu")
+    runs = {"cuda": _tree_to(p16, dev), "cpu": p16,
+            "f32": tree_map(lambda t: t.float().clone(), p16)}
+    rng = np.random.default_rng(3)
+    toks = rng.integers(0, cfg.vocab_size, (2, 32)).astype(np.int32)
+    labels = rng.integers(0, cfg.vocab_size, (2, 32)).astype(np.int32)
+    D.reset_launch_counts()
+    for name, p in runs.items():
+        for t in tree_leaves(p):
+            t.requires_grad_(True)
+        where = "cuda" if name == "cuda" else "cpu"
+        batch = {"tokens": torch.from_numpy(toks).to(where),
+                 "labels": torch.from_numpy(labels).to(where)}
+        opt = adafactor() if hybrid else adamw()
+        policy = TrainPolicy(
+            optimizer=opt.name, microbatches=2 if hybrid else 1,
+            grad_accum_dtype=(torch.bfloat16 if hybrid and name != "f32"
+                              else torch.float32))
+        make_train_step(cfg, opt, policy)(p, opt.init(p), batch)
+    counts = D.launch_counts()
+    kernels = ["flash_attention_lse", "flash_attention_bwd_bf16"]
+    if cfg.uses_moe:
+        kernels += ["moe_dispatch", "moe_combine", "moe_combine_weight_grad"]
+    for name in kernels:
+        assert counts[name] > 0, (name, counts)
+    grads = {}
+    for name, p in runs.items():
+        paths = list(tree_paths(p))
+        for path, t in paths:
+            assert t.grad is not None, (name, path)
+        grads[name] = [t.grad for _, t in paths]
+    card, card_tree = _rel_l2(grads["cuda"], grads["f32"])
+    cpu, cpu_tree = _rel_l2(grads["cpu"], grads["f32"])
+    assert card_tree <= 1.25 * cpu_tree + 0.01, (card_tree, cpu_tree)
+    assert max(card) <= 0.3, max(zip(card, [p for p, _ in paths]))
 
 
 def test_launch_train_on_card(dev, tmp_path):
@@ -1450,6 +1648,23 @@ def test_launch_train_on_card(dev, tmp_path):
     for s in (2, 3):
         assert resumed["losses"][s] == pytest.approx(whole["losses"][s],
                                                      rel=1e-6)
+
+
+def test_launch_train_in_bf16_on_card(dev):
+    """``launch.train --device cuda --smoke --dtype bfloat16``: the bf16
+    step on the card (the attention forward with its logsumexp and the
+    bf16 backward kernel) with finite losses."""
+    from repro_torch import device as D
+    from repro_torch.launch import train
+
+    D.reset_launch_counts()
+    out = train.main(["--device", "cuda", "--smoke", "--arch",
+                      "phi3.5-moe-42b-a6.6b", "--seq-len", "32", "--batch",
+                      "2", "--steps", "3", "--dtype", "bfloat16"])
+    assert all(np.isfinite(out["losses"][s]) for s in range(3))
+    counts = D.launch_counts()
+    assert counts["flash_attention_lse"] > 0
+    assert counts["flash_attention_bwd_bf16"] > 0
 
 
 def test_kernel_wrappers_on_a_split_mesh_on_card(dev, tmp_path):

@@ -191,3 +191,76 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     q = _bf(1, 8, 2, 64)
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernel.flash_attention_fwd(q, q, q, scale=0.125)
+
+
+#: (B, Sq, Sk, H, KH, D, Dv, causal, window, cap, q_offset): the bf16
+#: backward kernel's cases, rows that see no key included
+_BF16_BWD_CASES = [
+    (2, 40, 40, 4, 2, 32, 32, True, None, None, 0),
+    (1, 37, 50, 4, 4, 48, 32, True, None, 30.0, 13),
+    (2, 30, 20, 4, 2, 16, 16, True, 6, None, 17),    # rows see no key
+    (1, 24, 33, 2, 1, 64, 48, False, 9, 20.0, 4),
+]
+
+
+@pytest.mark.parametrize("case", _BF16_BWD_CASES)
+def test_bf16_backward_plain_version_works_in_float32(case):
+    """``flash_attention_bwd_ref`` on bf16 q, k, v and dO (the plain version
+    the bf16 backward kernel is held to) does its arithmetic in float32
+    and returns float32: with the float32 forward's output and logsumexp
+    of the same values it equals autograd through ``flash_attention_ref``
+    on the float32 copies within 1e-5 of each gradient's largest
+    magnitude; with the bf16 output too, it equals itself on float32
+    copies of every input within 1e-6 (no bf16 rounding inside).  The
+    bf16 ``return_lse`` plain path gives the float32 copies' logsumexp,
+    +inf on the same rows."""
+    B, Sq, Sk, H, KH, D, Dv, causal, window, cap, q_offset = case
+    rng = np.random.default_rng(17)
+    q, k, v, g = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+                  .bfloat16() for s in ((B, Sq, H, D), (B, Sk, KH, D),
+                                        (B, Sk, KH, Dv), (B, Sq, H, Dv)))
+    opts = dict(causal=causal, window=window, cap=cap, scale=D ** -0.5,
+                q_offset=q_offset)
+    leaves = [t.float().requires_grad_(True) for t in (q, k, v)]
+    out, lse = ref.flash_attention_ref(*leaves, return_lse=True, q_blk=16,
+                                       kv_blk=16, **opts)
+    (out * g.float()).sum().backward()
+    got = ref.flash_attention_bwd_ref(q, k, v, out.detach(), lse, g,
+                                      q_blk=16, **opts)
+    for what, a, t in zip("qkv", got, leaves):
+        assert a.dtype == torch.float32
+        torch.testing.assert_close(a, t.grad, rtol=0,
+                                   atol=1e-5 * float(t.grad.abs().max()),
+                                   msg=f"d{what}")
+    out16, lse16 = ref.flash_attention_ref(q, k, v, return_lse=True,
+                                           q_blk=16, kv_blk=16, **opts)
+    assert out16.dtype == torch.bfloat16 and lse16.dtype == torch.float32
+    assert torch.equal(torch.isinf(lse16), torch.isinf(lse))
+    fin = torch.isfinite(lse)
+    assert not fin.all() if window == 6 else fin.all()
+    torch.testing.assert_close(lse16[fin], lse[fin], rtol=0, atol=1e-6)
+    got16 = ref.flash_attention_bwd_ref(q, k, v, out16, lse16, g, q_blk=16,
+                                        **opts)
+    want16 = ref.flash_attention_bwd_ref(q.float(), k.float(), v.float(),
+                                         out16.float(), lse16, g.float(),
+                                         q_blk=16, **opts)
+    for a, b in zip(got16, want16):
+        assert a.dtype == torch.float32
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-6 * float(b.abs().max()))
+
+
+def test_bf16_backward_kernel_wrapper_refuses_what_it_cannot_take():
+    """The backward wrapper takes CUDA tensors only and, in bf16, a
+    16-byte-aligned ``dout``; ``aligned16`` reads the rule without a card
+    and ``FlashAttention`` copies a ``dout`` that breaks it."""
+    from repro_torch.kernels.flash_attention import kernel
+
+    q = _bf(1, 8, 2, 64)
+    lse = torch.zeros(1, 2, 8)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernel.flash_attention_bwd(q, q, q, q, lse, q, scale=0.125)
+    assert kernel.aligned16(q)
+    assert not kernel.aligned16(_bf(1, 8, 2, 68)[..., :64])
+    assert not kernel.aligned16(_bf(1, 8, 2, 68)[..., 4:])
+    assert kernel.aligned16(_bf(1, 8, 2, 68, dtype=torch.float32)[..., :64])

@@ -1,0 +1,16 @@
+"""The port's bfloat16 train step against the reference's on the CPU for
+the smoke config of Jamba-1.5's hybrid (attention, Mamba-2 and MoE
+layers), from the reference's bf16 weights: with AdamW, and under the
+>100 B hybrid's policy (Adafactor, gradients summed in bf16 over 2
+microbatches).  Each case runs in a file of its own, as each takes about
+a minute and a half.  The tolerances and their reasons are in
+``torch_train_common.check_bf16_train_step``."""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from torch_train_common import HYBRID, check_bf16_train_step  # noqa: E402
+
+
+def test_bf16_train_step_matches_reference_under_the_hybrid_policy():
+    check_bf16_train_step("jamba-1.5-large-398b", HYBRID)
