@@ -60,7 +60,7 @@ LAUNCHES: Dict[str, int] = {
     "flash_attention_f32": 0,    # float32, tensor cores in 3xTF32
     "flash_attention_bwd_f32": 0,  # its backward, float32 (3xTF32)
     "flash_attention_lse": 0,    # bfloat16 writing its logsumexp
-    "flash_attention_bwd_bf16": 0,  # its backward, bfloat16 (mma.sync)
+    "flash_attention_bwd_bf16": 0,  # its backward, bfloat16 (wgmma)
     "moe_dispatch": 0,
     "moe_combine": 0,
     "moe_combine_weight_grad": 0,  # the combine's routing-weight gradient

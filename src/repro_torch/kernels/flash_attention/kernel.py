@@ -31,9 +31,9 @@ call for their three kernels:
 
 * float32: ``csrc/flash_attention_bwd.cu`` (``mma.sync`` TF32 in the
   3xTF32 split; counter ``flash_attention_bwd_f32``), float32 gradients;
-* bfloat16: ``csrc/flash_attention_bwd_bf16.cu`` (``mma.sync`` bf16 with
-  float32 accumulators; counter ``flash_attention_bwd_bf16``), bf16
-  gradients; every pointer and stride 16-byte aligned, as the bf16
+* bfloat16: ``csrc/flash_attention_bwd_bf16.cu`` (``wgmma`` bf16 with
+  float32 accumulators, fed by TMA; counter ``flash_attention_bwd_bf16``),
+  bf16 gradients; every pointer and stride 16-byte aligned, as the bf16
   forward needs.
 
 The gradients come back contiguous in q's, k's and v's layouts.

@@ -21,9 +21,10 @@ backward is the backward kernel of that dtype, no atomics, the same bits
 every run: float32 runs ``csrc/flash_attention.cu``'s logsumexp entry and
 ``csrc/flash_attention_bwd.cu`` (the 3xTF32 split on the tensor cores),
 bfloat16 the logsumexp instantiation of ``csrc/flash_attention_sm90.cu``
-and ``csrc/flash_attention_bwd_bf16.cu`` (bf16 ``mma.sync`` with float32
-accumulators; the gradients in bf16).  A call that needs none (serving,
-under ``torch.no_grad()``) launches the forward kernel alone, as before.
+and ``csrc/flash_attention_bwd_bf16.cu`` (bf16 ``wgmma`` with float32
+accumulators, fed by TMA; the gradients in bf16).  A call that needs none
+(serving, under ``torch.no_grad()``) launches the forward kernel alone, as
+before.
 
 On a mesh.  DTensor inputs never reach a kernel's extension call: they
 run through ``local_map`` (:func:`_sharded`), each rank's call the ordinary

@@ -1421,9 +1421,10 @@ def test_train_gradients_on_card_match_cpu(dev, arch):
                                    atol=1e-5 * scale, msg=str(path))
 
 
-#: the bf16 kernels' cases (D and Dv multiples of 16): D 64, 128 and MLA's
-#: 192/128, causal, window, cap, q_offset, GQA; and (fused) strided views
-#: of one fused projection
+#: the bf16 kernels' cases (D and Dv multiples of 16): D 16 to 256 and
+#: MLA's 192/128, causal, window, cap, q_offset, GQA from G 1 to 8, Sq and
+#: Sk on either side of the 64- and 128-row tiles; and (fused) strided
+#: views of one fused projection
 _BF16_BWD_CASES = [
     ((2, 64, 64, 4, 2, 64, 64, True, None, None, 0), False),
     ((2, 100, 70, 8, 2, 64, 64, True, None, None, 30), False),
@@ -1437,6 +1438,20 @@ _BF16_BWD_CASES = [
     ((2, 50, 29, 4, 2, 64, 64, True, 6, None, 27), False),  # rows see no key
     ((2, 77, 77, 8, 2, 64, 64, True, 40, 30.0, 0), True),
     ((1, 130, 130, 4, 2, 128, 128, True, None, None, 0), True),
+    # the wgmma kernels' tile edges: 64-row query and key tiles, 128-key
+    # dK/dV blocks, 32-query tiles at MLA's widths, dk/dv column chunks
+    ((1, 63, 65, 4, 2, 128, 128, True, None, None, 2), False),
+    ((1, 127, 129, 4, 1, 64, 64, False, None, None, 0), False),
+    ((2, 129, 127, 8, 8, 128, 128, True, None, 20.0, 0), False),  # G = 1
+    ((1, 65, 63, 16, 2, 128, 128, True, None, None, 0), False),   # G = 8
+    ((1, 150, 200, 4, 2, 128, 128, True, None, None, 37), False),  # diagonal
+    ((2, 65, 63, 4, 2, 16, 16, True, None, None, 0), False),      # D 16
+    ((1, 129, 127, 4, 2, 256, 256, True, 40, None, 0), False),    # D 256
+    ((1, 129, 65, 4, 2, 128, 128, True, 16, None, 20), False),  # no key
+    ((1, 65, 129, 4, 4, 192, 128, True, None, None, 64), False),   # MLA
+    ((2, 63, 63, 16, 16, 192, 128, False, 20, 30.0, 0), False),
+    ((1, 65, 65, 4, 2, 64, 192, True, None, None, 0), False),     # Dv > D
+    ((1, 100, 100, 4, 2, 256, 64, False, None, None, 0), False),
 ]
 
 
@@ -1477,6 +1492,9 @@ def test_bf16_flash_attention_lse_and_backward_match_plain_versions(
     (2, 512, 512, 32, 8, 128, 128, True, None, None, 0),
     (1, 300, 260, 8, 2, 64, 64, True, 70, 20.0, 13),
     (1, 96, 96, 4, 4, 192, 128, False, None, 50.0, 0),
+    (1, 129, 127, 8, 1, 256, 256, True, 40, None, 0),
+    (2, 65, 63, 4, 4, 16, 16, True, None, None, 10),
+    (1, 127, 129, 16, 2, 128, 128, True, 30, 20.0, 37),
 ])
 def test_bf16_flash_attention_backward_is_deterministic(dev, case):
     """Two calls of the bf16 backward on the same inputs give bit-equal dq,
