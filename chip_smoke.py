@@ -13,8 +13,8 @@ warm and traced); ``join-probe`` (``radix_hash_probe`` at Q-a's shape with
 the probe codes in order and shuffled, then Q-a and Q-b); ``segment-sum``
 (the segment sum's cases at Q-c's shape, then Q-c and Q-e); ``sharded``
 (phase 5b, after the single-device Q-a; with ``--profile``, traces of
-both); ``lm`` (phase 6); ``train`` (phase 2's training rows, then phase
-8); ``dryrun`` (phase 9).
+both); ``pressure`` (phase 4b); ``lm`` (phase 6); ``train`` (phase 2's
+training rows, then phase 8); ``dryrun`` (phase 9).
 
 Phases (any mismatch or exception ends the run with a non-zero exit code):
 
@@ -60,6 +60,33 @@ Phases (any mismatch or exception ends the run with a non-zero exit code):
    open loop of two Poisson tenants for 2 s; no query may fail or be shed,
    every answer must equal the oracle, and the governor must never go over
    budget;
+4b. the memory-pressure path, each check failing the run: (1) the paper's
+   headline, ``benchmarks/common.py::sort_table(1_000_000, 4)``'s columns
+   made here with numpy from ``--seed``, sorted by ``sort_linear`` at 1 MB
+   of work_mem (an external merge sort spilling to disk) and by
+   ``tensor_sort`` on the card, 1 warm-up and 5 runs each (p50, max,
+   spilled MB and 8 KB blocks), rows equal to a numpy lexsort,
+   ``radix_sort_pass`` launched; (2) Q-a's join core at SF1 (lineitem ⋈
+   orders → sum(l_extendedprice), no filter) at 1 MB in four ways:
+   ``linear`` to flat disk, ``linear`` through ``TierConfig()``'s tiers, and
+   a stale ``auto`` session (fig14's constants: linear priced 50x too
+   cheap) with guards off and on; each answer the oracle's, every spilled
+   byte freed, the tier books balanced; (3) the guards' switches onto the
+   card: the star join of ``tests/test_adaptive_guards.py`` (120,000 rows,
+   256 KB) and its sort (200,000 rows, 128 KB) under stale ``auto``, each
+   with exactly one operator switched from linear to tensor, the answer of
+   a linear run at 64 MB, and the takeover's kernels launched
+   (``radix_rank``, ``join_table_build``, ``join_table_probe``;
+   ``radix_sort_pass``); (4) that test file's chaos hammer on the card (8
+   workers x 4, tiers, injected spill, grant and slow-device faults, eager
+   hysteresis): every query served or failed, every answer the oracle's,
+   no over-budget event, balanced books, faults injected, switches
+   printed; (5) SF1 Q-a through a session whose injector fails every
+   device lease: the oracle's answer on the linear path after
+   ``RetryPolicy.device_fallback_after`` failures, every operator's
+   reason ``device-fallback``, a reason no other operator of phases 3 to
+   4b may carry (that fallback is for injected faults: a real kernel or
+   CUDA error propagates);
 5. the four queries at a small scale on the card and on the CPU
    (``device="cpu"``, the plain versions), which must agree exactly;
 5b. the sharded fused fragment over the card's eight logical lanes, on
@@ -281,7 +308,10 @@ def oracle(orders, lineitem):
         qe[f"sum_{c}"] = np.zeros(len(uniq), np.float64)
         np.add.at(qe[f"sum_{c}"], inv, lineitem[c].astype(np.float64))
     qe["count_orderkey"] = np.bincount(inv).astype(np.float64)
-    return {"Q-a": qa, "Q-b": qb, "Q-c": qc, "Q-d": qd, "Q-e": qe}
+    # Q-a's join core without its filter (phase 4b): every line has its order
+    qj = int(lineitem["l_extendedprice"][hit].sum())
+    return {"Q-a": qa, "Q-b": qb, "Q-c": qc, "Q-d": qd, "Q-e": qe,
+            "Q-a join": qj}
 
 
 QUERIES = ("Q-a", "Q-b", "Q-c", "Q-d", "Q-e")
@@ -2001,6 +2031,7 @@ def main_path(orders, lineitem, want):
         res = q.collect()
         cold = time.perf_counter() - t0
         check_answer(name, res, want[name])
+        check_no_fallback(name, res.metrics)
         results, warm = warm_runs(name, q, want[name])
         res = results[-1]
         syncs = [r.total_host_syncs for r in results]
@@ -2181,6 +2212,358 @@ def small_agreement(seed: int) -> None:
             fail(f"{k}: the card and the CPU disagree at small scale")
     if not np.isfinite(answers["cuda"]["Q-a"].scalar):
         fail("Q-a is not finite at small scale")
+
+
+# ---------------------------------------------------------------------------
+# Phase 4b: the memory-pressure path on the card
+# ---------------------------------------------------------------------------
+
+MB = 1 << 20
+PRESSURE_WORK_MEM = 1 * MB   # the paper's headline work_mem
+HEADLINE_ROWS = 1_000_000    # the paper's headline N
+HEADLINE_RUNS = 5            # after one warm-up; p50 and max over these
+STALE = 0.02                 # fig14's mis-calibration: linear 50x too cheap
+JOIN_KERNELS = ("radix_rank", "join_table_build", "join_table_probe")
+
+
+def headline_table(seed: int) -> dict:
+    """``benchmarks/common.py::sort_table(1_000_000, 4)`` with numpy from
+    ``seed``: four keys over domains 64, 2^16, 2^30 and 2^40, two payload
+    columns."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    cols = {f"k{i}": rng.integers(0, d, HEADLINE_ROWS).astype(np.int64)
+            for i, d in enumerate((64, 1 << 16, 1 << 30, 1 << 40))}
+    for c in ("p0", "p1"):
+        cols[c] = rng.integers(0, 1 << 40, HEADLINE_ROWS).astype(np.int64)
+    return cols
+
+
+def guard_star(n: int, seed: int = 14):
+    """``tests/test_adaptive_guards.py::star_tables``: a build side whose
+    keys are a permutation, a probe side drawn from them; and the numpy
+    answer of ``sum(b_v)`` over their join."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    build = {"k": rng.permutation(n).astype(np.int64),
+             "v": rng.integers(0, 1 << 30, n).astype(np.int64)}
+    probe = {"k": rng.integers(0, n, n).astype(np.int64),
+             "w": rng.integers(0, 1 << 30, n).astype(np.int64)}
+    v_at = np.empty(n, np.int64)
+    v_at[build["k"]] = build["v"]
+    return build, probe, int(v_at[probe["k"]].sum())
+
+
+def stale_session(work_mem: int, **kw):
+    """An ``auto`` card session whose selector prices the linear path 50x
+    too cheap (fig14's stale constants): it commits to the spill cliff."""
+    from repro_torch.core import Session
+
+    sess = Session(work_mem=work_mem, policy="auto", device="cuda", **kw)
+    sess.selector.model.c.linear_row_cost *= STALE
+    sess.selector.model.c.io_byte_cost *= STALE
+    return sess
+
+
+def spill_books(label: str, metrics) -> tuple:
+    """Spill bytes written and blocks over a query's operators; fails
+    unless every byte written was freed."""
+    written = sum(m.spill.bytes_written for m in metrics)
+    freed = sum(m.spill.bytes_freed for m in metrics)
+    if written != freed:
+        fail(f"{label}: spilled {written} B but freed {freed} B")
+    return written, sum(m.spill.blocks for m in metrics)
+
+
+def check_no_fallback(label: str, metrics) -> None:
+    """Only an injected device fault may move an operator to the linear
+    path (a ``device-fallback`` reason); a real kernel or CUDA error
+    propagates."""
+    bad = [m.op for m in metrics
+           if m.decision_reason.startswith("device-fallback")]
+    if bad:
+        fail(f"{label}: operators {bad} fell back from the device")
+
+
+def pressure_headline(seed: int) -> dict:
+    """Check 1: the paper's headline sort at 1 MB of work_mem, the linear
+    external merge sort against the tensor path's sort on the card, each
+    one warm-up and ``HEADLINE_RUNS`` runs timed on the host clock (the
+    tensor run's upload and fetch included); rows equal each other and a
+    numpy lexsort, ``radix_sort_pass`` launched by the tensor runs."""
+    import numpy as np
+
+    from repro_torch import device as D
+    from repro_torch.core import Relation, sort_linear, tensor_sort
+
+    cols = headline_table(seed)
+    rel = Relation(cols)
+    keys = ["k0", "k1", "k2", "k3"]
+    order = np.lexsort([cols[k] for k in reversed(keys)])
+    out = {}
+    for path in ("linear", "tensor"):
+        before = D.launch_counts()["radix_sort_pass"]
+        secs, res = [], None
+        for i in range(1 + HEADLINE_RUNS):
+            t0 = time.perf_counter()
+            if path == "linear":
+                res, m = sort_linear(rel, keys, PRESSURE_WORK_MEM)
+            else:
+                res, m = tensor_sort(rel, keys, device="cuda")
+            if i:
+                secs.append(time.perf_counter() - t0)
+        for k, v in cols.items():
+            if not np.array_equal(res[k], v[order]):
+                fail(f"headline ({path}): column {k} is not the sorted rows")
+        launches = D.launch_counts()["radix_sort_pass"] - before
+        if path == "tensor" and launches <= 0:
+            fail("headline (tensor): radix_sort_pass was not launched")
+        out[path] = {"p50_s": statistics.median(secs), "max_s": max(secs),
+                     "runs_s": secs, "spilled_mb": m.spill.temp_mb,
+                     "blocks": m.spill.blocks, "op_wall_s": m.wall_s,
+                     "radix_sort_pass_launches": launches}
+    return out
+
+
+def pressure_sf1(orders, lineitem, want) -> dict:
+    """Check 2: Q-a's join core at SF1 (lineitem ⋈ orders →
+    sum(l_extendedprice), 6,001,215 x 1,500,000 rows) at 1 MB of
+    work_mem: linear to flat disk, linear through the default tiers, and
+    the stale ``auto`` session with guards off and on.  Each answer is
+    the oracle's and every spilled byte is freed."""
+    from repro_torch.core import Session, TierConfig
+
+    modes = {"linear": lambda: Session(work_mem=PRESSURE_WORK_MEM,
+                                       policy="linear", device="cuda"),
+             "linear_tiered": lambda: Session(
+                 work_mem=PRESSURE_WORK_MEM, policy="linear", device="cuda",
+                 tiers=TierConfig()),
+             "stale_auto_guards_off": lambda: stale_session(
+                 PRESSURE_WORK_MEM, guards=False),
+             "stale_auto_guards_on": lambda: stale_session(
+                 PRESSURE_WORK_MEM, guards=True)}
+    out = {}
+    for mode, make in modes.items():
+        sess = make()
+        sess.register("orders", orders)
+        sess.register("lineitem", lineitem)
+        q = (sess.table("lineitem").join("orders", on="orderkey")
+             .aggregate("l_extendedprice", "sum"))
+        t0 = time.perf_counter()
+        res = q.collect()
+        wall = time.perf_counter() - t0
+        label = f"SF1 join core ({mode})"
+        if res.scalar != float(want["Q-a join"]):
+            fail(f"{label}: {res.scalar!r} != oracle {want['Q-a join']}")
+        check_no_fallback(label, res.metrics)
+        written, blocks = spill_books(label, res.metrics)
+        books = None
+        if sess.tier_ledger is not None:
+            sess.tier_ledger.verify_balanced()
+            snap = sess.tier_ledger.snapshot()
+            books = {t: {k: snap[t][k] for k in ("bytes_written",
+                                                 "bytes_read", "bytes_freed")}
+                     for t in ("t0", "t1", "t2")}
+        out[mode] = {"wall_s": wall, "spilled_mb": written / 1e6,
+                     "blocks": blocks, "tiers": books,
+                     "ops": [f"{m.op}:{m.path}" for m in res.metrics],
+                     "switches": sum(m.switched for m in res.metrics)}
+    return out
+
+
+def pressure_switches() -> dict:
+    """Check 3: stale ``auto`` sessions on the card whose guards abandon
+    the spilling linear operator for the tensor path: the star join
+    (120,000 rows, 256 KB, flat disk) and the sort (200,000 rows, 128 KB),
+    each with exactly one switched operator, the linear run's answer at
+    64 MB, and the takeover's kernels launched."""
+    import numpy as np
+
+    from repro_torch import device as D
+    from repro_torch.core import Session
+
+    def one_switch(label, res):
+        check_no_fallback(label, res.metrics)
+        sw = [m for m in res.metrics if m.switched]
+        if len(sw) != 1 or sw[0].pre_switch_path != "linear" \
+                or sw[0].path != "tensor":
+            fail(f"{label}: switched ops "
+                 f"{[(m.op, m.pre_switch_path, m.path) for m in sw]} of "
+                 f"{[m.op for m in res.metrics]}, want one linear -> tensor")
+        spill_books(label, res.metrics)
+        return {"op": sw[0].op, "wall_s": sw[0].wall_s,
+                "pre_switch_wall_s": sw[0].pre_switch_wall_s,
+                "reused_spill_bytes": sw[0].reused_spill_bytes,
+                "spilled_mb": sw[0].spill.temp_mb,
+                "reason": sw[0].decision_reason}
+
+    out = {}
+    build, probe, want = guard_star(120_000)
+    for label, sess in (("linear, 64 MB", Session(
+            work_mem=64 * MB, policy="linear", device="cuda")),
+                        ("stale auto", stale_session(256 * 1024))):
+        sess.register("b", build).register("p", probe)
+        before = D.launch_counts()
+        res = (sess.table("p").join("b", on="k")
+               .aggregate("b_v", "sum")).collect()
+        after = D.launch_counts()
+        if res.scalar != float(want):
+            fail(f"star join ({label}): {res.scalar!r} != {want}")
+    out["join"] = one_switch("star join switch", res)
+    delta = {k: after[k] - before[k] for k in JOIN_KERNELS}
+    if min(delta.values()) <= 0:
+        fail(f"star join switch: the takeover launched {delta}")
+    out["join"]["launches"] = delta
+
+    rng = np.random.default_rng(3)
+    n = 200_000
+    rel = {"k": rng.integers(0, n, n).astype(np.int64),
+           "w": rng.integers(0, 1 << 30, n).astype(np.int64)}
+    order = np.lexsort((rel["w"], rel["k"]))
+    for label, sess in (("linear, 64 MB", Session(
+            work_mem=64 * MB, policy="linear", device="cuda")),
+                        ("stale auto", stale_session(128 * 1024))):
+        sess.register("t", rel)
+        before = D.launch_counts()["radix_sort_pass"]
+        res = sess.table("t").sort("k", "w").collect()
+        launches = D.launch_counts()["radix_sort_pass"] - before
+        for k, v in rel.items():
+            if not np.array_equal(res.relation[k], v[order]):
+                fail(f"sort ({label}): column {k} differs")
+    out["sort"] = one_switch("sort switch", res)
+    if launches <= 0:
+        fail("sort switch: the takeover did not launch radix_sort_pass")
+    out["sort"]["launches"] = {"radix_sort_pass": launches}
+    return out
+
+
+def pressure_chaos() -> dict:
+    """Check 4: ``test_chaos_switch_hammer``'s server on the card (8
+    workers x 4, 24 MB, 512 KB of work_mem, free remote tier, injected
+    spill, grant and slow-device faults, stale constants, eager
+    hysteresis): every query served or failed, every served answer the
+    oracle's, never over budget, balanced tier books, faults injected.
+    Switches are printed, not required (they depend on the race)."""
+    from repro_torch.core import FaultInjector, QueryServer, TierConfig
+
+    build, probe, want = guard_star(60_000)
+    srv = QueryServer(
+        {"b": build, "p": probe}, total_mem=24 * MB, work_mem=512 * 1024,
+        min_grant=256 * 1024, device="cuda",
+        tiers=TierConfig(t1_latency_s=0.0, t1_gbps=1000.0),
+        faults=FaultInjector(seed=7, spill_io_p=0.01, device_slow_p=0.05,
+                             device_slow_s=0.002, grant_timeout_p=0.01,
+                             spill_read_p=0.01))
+    c = srv.session.selector.model.c
+    c.linear_row_cost *= STALE
+    c.io_byte_cost *= STALE
+    c.guard_hysteresis = 0.5
+    q = srv.session.table("p").join("b", on="k").aggregate("b_v", "sum")
+    t0 = time.perf_counter()
+    rep = srv.serve([q], concurrency=8, queries_per_worker=4, warmup=1)
+    wall = time.perf_counter() - t0
+    counts = rep.counts
+    if counts["served"] + counts["failed"] != 32 or counts["served"] <= 0:
+        fail(f"chaos: {counts}")
+    for sq in rep.queries:
+        if sq.scalar != float(want):
+            fail(f"chaos: a served answer {sq.scalar!r} != {want}")
+    if rep.governor.over_budget_events or srv.governor.held_bytes:
+        fail(f"chaos: {rep.governor.over_budget_events} over-budget events, "
+             f"{srv.governor.held_bytes} bytes held")
+    srv.session.tier_ledger.verify_balanced()
+    faults = srv.faults.counts()
+    if sum(faults.values()) <= 0:
+        fail("chaos: no fault was injected")
+    if faults["device_fail"]:
+        fail("chaos: a device fault was injected (none is configured)")
+    return {"counts": counts, "wall_s": wall, "faults": faults,
+            "switches": srv.broker.stats().switches,
+            "switched_queries": sum(sq.switched for sq in rep.queries),
+            "failed": sorted({f.error for f in rep.failed}),
+            "p50_s": rep.latency.p50 if rep.queries else None}
+
+
+def pressure_device_faults(orders, lineitem, want) -> dict:
+    """Check 5: SF1 Q-a through a tensor session whose broker's injector
+    fails every device lease: the executor's retries count the failures,
+    after ``RetryPolicy.device_fallback_after`` of them the query runs
+    linear with ``device-fallback`` reasons, and the answer is the
+    oracle's.  (A fresh fused program takes no lease, so the query runs
+    twice.)"""
+    from repro_torch.core import (FaultInjector, ResourceBroker, RetryPolicy,
+                                  Session)
+
+    inj = FaultInjector(seed=0, device_fail_p=1.0)
+    sess = Session(work_mem=PRESSURE_WORK_MEM, policy="tensor",
+                   device="cuda", broker=ResourceBroker(None, faults=inj))
+    sess.register("orders", orders)
+    sess.register("lineitem", lineitem)
+    q = queries(sess)["Q-a"]
+    secs = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        res = q.collect()
+        secs.append(time.perf_counter() - t0)
+        check_answer("Q-a", res, want["Q-a"])
+    fails = inj.counts()["device_fail"]
+    if fails < RetryPolicy().device_fallback_after:
+        fail(f"device faults: {fails} injected")
+    reasons = [m.decision_reason for m in res.metrics]
+    if (not res.metrics or any(m.path != "linear" for m in res.metrics)
+            or not all(r.startswith("device-fallback") for r in reasons)):
+        fail(f"device faults: ops {[(m.op, m.path) for m in res.metrics]}, "
+             f"reasons {reasons}")
+    return {"device_fail": fails, "wall_s": secs,
+            "ops": [f"{m.op}:{m.path}" for m in res.metrics],
+            "spilled_mb": sum(m.spill.temp_mb for m in res.metrics)}
+
+
+def pressure_phase(orders, lineitem, want, seed: int) -> dict:
+    """Phase 4b's five checks, each printed as it ends."""
+    t_all = time.perf_counter()
+    out = {"headline": pressure_headline(seed)}
+    for path, r in out["headline"].items():
+        print(f"headline sort ({path}, {HEADLINE_ROWS} rows x 4 keys, "
+              f"{PRESSURE_WORK_MEM} B work_mem): p50 {r['p50_s']:.4f} s, max "
+              f"{r['max_s']:.4f} s over {HEADLINE_RUNS}, spilled "
+              f"{r['spilled_mb']:.2f} MB in {r['blocks']} blocks, "
+              f"radix_sort_pass launches {r['radix_sort_pass_launches']}",
+              flush=True)
+    out["sf1"] = pressure_sf1(orders, lineitem, want)
+    for mode, r in out["sf1"].items():
+        print(f"SF1 join core ({mode}): {r['wall_s']:.3f} s, spilled "
+              f"{r['spilled_mb']:.2f} MB in {r['blocks']} blocks, switches "
+              f"{r['switches']}, ops {r['ops']}, tiers {r['tiers']}",
+              flush=True)
+    out["switches"] = pressure_switches()
+    for what, r in out["switches"].items():
+        print(f"{what} switch onto the card: {r['op']} after "
+              f"{r['pre_switch_wall_s']:.4f} s linear, {r['wall_s']:.4f} s "
+              f"in all, spilled {r['spilled_mb']:.3f} MB, reused "
+              f"{r['reused_spill_bytes']} B, launches {r['launches']}",
+              flush=True)
+    out["chaos"] = pressure_chaos()
+    r = out["chaos"]
+    print(f"chaos (8 workers x 4): {r['counts']}, faults {r['faults']}, "
+          f"switches {r['switches']}, failed as {r['failed']}, "
+          f"{r['wall_s']:.2f} s", flush=True)
+    out["device_faults"] = pressure_device_faults(orders, lineitem, want)
+    r = out["device_faults"]
+    print(f"device faults: {r['device_fail']} injected, Q-a ran "
+          f"{r['ops']} in {[round(s, 3) for s in r['wall_s']]} s",
+          flush=True)
+    out["wall_s"] = time.perf_counter() - t_all
+    print(f"pressure phase: {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
+def pressure_calls(dev, seed: int) -> dict:
+    """``--only pressure``: phase 4b on fresh SF1 tables."""
+    orders, lineitem = tpch(1.0, seed)
+    return pressure_phase(orders, lineitem, oracle(orders, lineitem), seed)
 
 
 # ---------------------------------------------------------------------------
@@ -3218,7 +3601,8 @@ def mesh_phase(seed: int, root: Path):
 #: the ``--only`` phases besides ``lm`` (phase 6, run by ``lm_serving``)
 ONLY = {"moe-dispatch": dispatch_calls, "moe-layer": moe_layer_calls,
         "join-build": join_build_calls, "join-probe": join_probe_calls,
-        "segment-sum": segment_sum_calls, "sharded": sharded_calls}
+        "segment-sum": segment_sum_calls, "sharded": sharded_calls,
+        "pressure": pressure_calls}
 
 
 def main() -> None:
@@ -3240,7 +3624,8 @@ def main() -> None:
                          "order and shuffled) and then Q-a and Q-b, "
                          "segment-sum the segment sum's cases at Q-c's "
                          "shape and then Q-c and Q-e, sharded is phase 5b "
-                         "after the single-device Q-a, lm is phase 6, "
+                         "after the single-device Q-a, pressure is phase 4b "
+                         "(the memory-pressure checks), lm is phase 6, "
                          "train is phase 2's training rows and phase 8 "
                          "(with --profile, their traces), dryrun is phase 9 "
                          "(the one-card mesh and the production dry-run)")
@@ -3294,6 +3679,8 @@ def main() -> None:
         libs = ("moe_dispatch",)
     elif args.only in ("join-build", "join-probe", "segment-sum", "sharded"):
         libs = ("segment_join",)
+    elif args.only == "pressure":
+        libs = ("segment_join", "multikey_sort")
     elif args.only == "dryrun":
         libs = ("flash_attention", "flash_attention_bwd", "moe_dispatch")
     for lib in libs:  # the first call builds every source, in parallel
@@ -3378,6 +3765,9 @@ def main() -> None:
           f"{r['tenants']}, held bytes {r['held_bytes']}, launches "
           f"{r['launches']} ({time.perf_counter() - t0:.1f} s)", flush=True)
 
+    # phase 4b: the memory-pressure path (the SF1 tables still built)
+    pressure = pressure_phase(orders, lineitem, want, args.seed)
+
     # phase 5: card vs CPU at small scale
     small_agreement(args.seed)
     print("small-scale card/CPU agreement: ok", flush=True)
@@ -3435,7 +3825,8 @@ def main() -> None:
               for r in rows}
     print(json.dumps({"queries": {k: report[k] for k in QUERIES},
                       "peak_allocated_bytes": report["peak_allocated_bytes"],
-                      "serving": serving, "sharded": sharded, "lm": lm,
+                      "serving": serving, "pressure": pressure,
+                      "sharded": sharded, "lm": lm,
                       "train": train, "mesh": mesh,
                       "kernel_rows": extras}))
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))

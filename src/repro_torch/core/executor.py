@@ -48,7 +48,8 @@ from .relation import Relation
 from .resource_broker import (PreemptToken, PressureQuote, ResourceBroker,
                               ResourceRequest, default_broker)
 from .spill import SpillManager
-from .tensor_engine import (tensor_join_device, tensor_sort_device)
+from .tensor_engine import (dense_join_domain, tensor_join_device,
+                            tensor_sort_device)
 from .tier import TierConfig, TierLedger, TierManager
 
 __all__ = ["Scan", "Filter", "Join", "Sort", "Aggregate", "GroupBy",
@@ -447,7 +448,9 @@ class Executor:
                     dev_p, up_p, log_p = self._to_device(p_all)
                     h2d += up_b + up_p
                     h2d_log += log_b + log_p
-                    gang, pm = tensor_join_device(dev_b, dev_p, key)
+                    gang, pm = tensor_join_device(
+                        dev_b, dev_p, key,
+                        dense=dense_join_domain(b_all, key))
                     syncs += pm.host_syncs
                 if not results and gang is not None:
                     # no host prefix: hand the takeover result downstream
@@ -954,7 +957,9 @@ class Executor:
                 sig = ("join", dev_b.num_physical_rows,
                        dev_p.num_physical_rows, node.key)
                 with self._device_leased(sig) as lease:
-                    out, m = tensor_join_device(dev_b, dev_p, node.key)
+                    out, m = tensor_join_device(
+                        dev_b, dev_p, node.key,
+                        dense=dense_join_domain(build, node.key))
                 self._stamp_lease(m, lease)
                 m.h2d_bytes += up_b + up_p
                 m.h2d_bytes_logical += log_b + log_p

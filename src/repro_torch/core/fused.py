@@ -52,7 +52,7 @@ from .partition import get_partitioned_columns, partition_bucket
 from .relation import Relation, column_token
 from .table_cache import get_device_layouts, key_stats
 from .tensor_engine import (_lex_perm, _order_key, capacity_bucket,
-                            radix_hash_probe_dispatch)
+                            dense_domain, radix_hash_probe_dispatch)
 
 __all__ = ["FusedSpec", "PredicateError", "device_mask", "match_fragment",
            "run_fused", "sharded_supported", "pipeline_cache_info",
@@ -521,7 +521,9 @@ def _join_dense(bk, pk, n_build, n_probe, capacity, domain: int, kmin: int):
     The table build and probe are the radix join of
     :func:`~repro_torch.core.tensor_engine.radix_hash_probe_dispatch`: the
     in-domain codes ``bk0c``/``pk0c`` are exactly the int32 code-domain
-    contract of its kernels, at any domain size on a CUDA device.
+    contract of its kernels, at any domain size on a CUDA device.  The
+    per-operator :func:`~repro_torch.core.tensor_engine.tensor_join_device`
+    runs it too.
     """
     B = bk.shape[0]
     P = pk.shape[0]
@@ -854,14 +856,7 @@ def _host_plan(build: Relation, probe: Relation, key: str):
     """
     stats = key_stats(build, key)
     capacity = capacity_bucket(int(len(probe) * stats.dup))
-    dense_domain = None
-    kmin = 0
-    if stats.dup == 1.0 and stats.n:
-        kmin = int(stats.kmin)
-        width = int(stats.kmax) - kmin + 1
-        if width <= 4 * capacity_bucket(stats.n):
-            dense_domain = capacity_bucket(width)
-    return capacity, dense_domain, kmin
+    return (capacity, *dense_domain(stats))
 
 
 def run_fused(spec: FusedSpec, build: Relation, probe: Relation,

@@ -8,7 +8,10 @@ programs instead of pointer-chasing linearized intermediates:
     (``argsort``), probe coordinates are aligned with ``searchsorted`` and
     match ranges expanded by segment arithmetic into a *statically sized*
     index space (capacity + validity mask).  No hash table is materialized;
-    memory traffic is deterministic O(N log N).
+    memory traffic is deterministic O(N log N).  ``tensor_join_device``
+    takes the fused fragment's dense core instead where the caller knows
+    the build keys to be unique in a narrow range (:func:`dense_join_domain`):
+    a direct-address table on the join kernels, no sort.
 
   * ``tensor_join_aggregate`` — the strongest form of delayed materialization:
     for join-then-aggregate queries the join output is **never produced**;
@@ -62,6 +65,7 @@ __all__ = [
     "sort_perm_device",
     "segment_sum_dispatch",
     "radix_hash_probe_dispatch",
+    "dense_join_domain",
 ]
 
 # Distinct sentinels so masked-out build rows can never meet masked-out probe
@@ -248,11 +252,39 @@ def tensor_join(
     return result, metrics
 
 
+def dense_domain(stats) -> Tuple[Optional[int], int]:
+    """``(domain, kmin)`` of the sort-free dense join core for a build key
+    sketch (:class:`~repro_torch.core.table_cache.KeyStats`): where it
+    predicts unique keys, ``kmin`` is the key offset, and ``domain`` the
+    power-of-two bucket of the key range if that is at most four capacity
+    buckets wide, else None.  The uniqueness guess is verified on the
+    device (``has_dup``)."""
+    if stats.dup != 1.0 or not stats.n:
+        return None, 0
+    kmin = int(stats.kmin)
+    width = int(stats.kmax) - kmin + 1
+    if width > 4 * capacity_bucket(stats.n):
+        return None, kmin
+    return capacity_bucket(width), kmin
+
+
+def dense_join_domain(build, key: str) -> Optional[Tuple[int, int]]:
+    """:func:`dense_domain` of a host relation's integer join key, or None
+    where there is no dense domain or the relation is device-resident (the
+    host does not hold its keys)."""
+    if not isinstance(build, Relation) or build[key].dtype.kind not in "iu":
+        return None
+    from .table_cache import key_stats
+    domain, kmin = dense_domain(key_stats(build, key))
+    return None if domain is None else (domain, kmin)
+
+
 def tensor_join_device(
     build: DeviceRelation,
     probe: DeviceRelation,
     key: str,
     capacity: Optional[int] = None,
+    dense: Optional[Tuple[int, int]] = None,
 ) -> Tuple[DeviceRelation, OpMetrics]:
     """Device-resident equi-join: payload columns never move.
 
@@ -260,6 +292,12 @@ def tensor_join_device(
     input relations' base columns (late materialization) plus a validity
     mask over the capacity-padded index space.  Host traffic: one scalar
     match count.
+
+    ``dense`` (``(domain, kmin)`` from :func:`dense_join_domain`) runs the
+    sort-free dense core on the join kernels, as the fused fragment's join
+    does: for unique build keys it gives the sorted core's rows in the
+    same order.  The duplicate flag rides back with the count; a build key
+    that repeats after all re-runs the sorted core (one more sync).
     """
     dev = probe.device
     if build.num_physical_rows == 0 or probe.num_physical_rows == 0:
@@ -281,18 +319,40 @@ def tensor_join_device(
     if probe.valid is not None:
         pk = torch.where(probe.valid, pk, _PROBE_DEAD_KEY)
     with Timer() as t:
-        order, left, starts, ends, total = _join_plan(bk, pk)
-        # scalar sync: the capacity / overflow signal.  Even with an explicit
-        # capacity the count must be verified — silently truncating the join
-        # would corrupt results.
-        n = int(to_host([total])[0])
-        syncs = 1
+        build_idx = None
+        syncs = 0
+        if dense is not None:
+            from .fused import _join_dense
+
+            # matched probe rows own the first slots, in row order, so the
+            # index space cut to the count's bucket is the sorted core's
+            P = pk.shape[0]
+            width = max(capacity or 0, capacity_bucket(P))
+            build_idx, probe_idx, valid, total, has_dup = _join_dense(
+                bk, pk, build.num_physical_rows, P, width, *dense)
+            n, dup = to_host([total, has_dup])
+            syncs += 1
+            if bool(dup):
+                build_idx = None
+        if build_idx is None:
+            order, left, starts, ends, total = _join_plan(bk, pk)
+            # scalar sync: the capacity / overflow signal.  Even with an
+            # explicit capacity the count must be verified — silently
+            # truncating the join would corrupt results.
+            n = to_host([total])[0]
+            syncs += 1
+        n = int(n)
         if capacity is None:
             capacity = capacity_bucket(n)
         elif n > capacity:
             raise ValueError(f"capacity {capacity} < exact match count {n}")
-        build_idx, probe_idx, valid = _expand_join(order, left, starts, ends,
-                                                   capacity)
+        if build_idx is None:
+            build_idx, probe_idx, valid = _expand_join(order, left, starts,
+                                                       ends, capacity)
+        else:
+            build_idx, probe_idx, valid = (build_idx[:capacity],
+                                           probe_idx[:capacity],
+                                           valid[:capacity])
         cols: Dict[str, DeviceColumn] = {}
         for name, c in probe.columns.items():
             cols[name] = c.take_lazy(probe_idx)

@@ -9,7 +9,10 @@ A CUDA tensor launches a hand-written kernel of :mod:`.kernel` (bf16 on
 tensor takes the plain version of :mod:`.ref`.  The kernels read their
 inputs through their strides, so a view (a slice of a fused projection, a
 transpose of ``[B, H, S, D]``) goes in without a copy; the last dimension
-must be contiguous, and bf16 strides whole 16 bytes.  The tile sizes are
+must be contiguous, and bf16 strides whole 16 bytes.  A bf16 head dim
+that is not a multiple of 16 (DeepSeek-V2-Lite's smoke MLA, 24) goes to the
+kernel zero-padded to one, with the scale of the unpadded D, and the output
+is sliced back (:func:`_pad16`; exact).  The tile sizes are
 the kernel's own on the card; on the CPU ``q_blk``/``kv_blk`` are the plain
 version's tiles.
 
@@ -40,6 +43,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from ...distributed.sharding import (axis_placements, dp_split, is_dtensor,
                                      mesh_axis_sizes)
@@ -116,6 +120,17 @@ def _sharded(q, k, v, opts):
                      device_mesh=mesh, redistribute_inputs=True)(q, k, v)
 
 
+def _pad16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` with zero columns up to the next multiple of 16 (at least 16),
+    the head dims the bf16 kernels take.  Exact: zero columns of q and k add
+    exact zeros to QK^T, and zero columns of v give zero output columns,
+    which the caller slices away.  ``F.pad`` is differentiable, so the
+    gradients come back sliced, and its result is contiguous (TMA's
+    16-byte strides)."""
+    d = t.shape[-1]
+    return F.pad(t, (0, max(16, -(-d // 16) * 16) - d))
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     cap: Optional[float] = None,
@@ -127,12 +142,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                       scale=scale, q_offset=q_offset,
                                       q_blk=q_blk, kv_blk=kv_blk))
     if q.device.type == "cuda":
+        Dv = v.shape[-1]
+        if q.dtype == torch.bfloat16 and (q.shape[-1] % 16 or Dv % 16):
+            q, k, v = _pad16(q), _pad16(k), _pad16(v)
         if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                         or v.requires_grad):
-            return FlashAttention.apply(q, k, v, causal, window, cap, scale,
-                                        q_offset)
-        return _k.flash_attention_fwd(q, k, v, causal=causal, window=window,
-                                      cap=cap, scale=scale, q_offset=q_offset)
+            out = FlashAttention.apply(q, k, v, causal, window, cap, scale,
+                                       q_offset)
+        else:
+            out = _k.flash_attention_fwd(q, k, v, causal=causal,
+                                         window=window, cap=cap, scale=scale,
+                                         q_offset=q_offset)
+        return out if out.shape[-1] == Dv else out[..., :Dv].contiguous()
     return _ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                     cap=cap, scale=scale, q_offset=q_offset,
                                     q_blk=q_blk, kv_blk=kv_blk)

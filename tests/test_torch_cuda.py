@@ -1595,22 +1595,28 @@ def test_bf16_train_gradients_on_card_match_cpu(dev, arch, hybrid):
     microbatches, so the bf16 accumulation runs (the float32 run sums in
     float32).  DeepSeek-V2-Lite's smoke config keeps
     its MLA at q/k 32 (16 + 16 rope) and v 16: the bf16 kernels take head
-    dims that are multiples of 16 (the full config's 192/128 are), and
-    refuse the smoke's 24 in serving too."""
+    dims that are multiples of 16 (the full config's 192/128 are); its
+    own 24 is in ``test_bf16_mla_at_its_smoke_head_dim_serves_and_trains``."""
     import dataclasses
 
-    from repro_torch import device as D
     from repro_torch.configs import get_smoke_config
+
+    cfg = get_smoke_config(arch)
+    if cfg.kv_lora_rank:
+        cfg = dataclasses.replace(cfg, head_dim=32, qk_nope_dim=16,
+                                  qk_rope_dim=16)
+    _check_bf16_train_gradients(dev, cfg, hybrid)
+
+
+def _check_bf16_train_gradients(dev, cfg, hybrid: bool) -> None:
+    """``test_bf16_train_gradients_on_card_match_cpu``'s check for ``cfg``."""
+    from repro_torch import device as D
     from repro_torch.models import init_model
     from repro_torch.train.optimizer import adafactor, adamw
     from repro_torch.train.trainer import TrainPolicy, make_train_step
     from repro_torch.train.tree import tree_leaves, tree_map, tree_paths
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = get_smoke_config(arch)
-    if cfg.kv_lora_rank:
-        cfg = dataclasses.replace(cfg, head_dim=32, qk_nope_dim=16,
-                                  qk_rope_dim=16)
     p16 = init_model(torch.Generator().manual_seed(0), cfg, torch.bfloat16,
                      device="cpu")
     runs = {"cuda": _tree_to(p16, dev), "cpu": p16,
@@ -1647,6 +1653,88 @@ def test_bf16_train_gradients_on_card_match_cpu(dev, arch, hybrid):
     cpu, cpu_tree = _rel_l2(grads["cpu"], grads["f32"])
     assert card_tree <= 1.25 * cpu_tree + 0.01, (card_tree, cpu_tree)
     assert max(card) <= 0.3, max(zip(card, [p for p, _ in paths]))
+
+
+def test_bf16_attention_pads_head_dims_the_kernel_does_not_take(dev):
+    """bf16 attention at DeepSeek-V2-Lite's smoke widths (q/k 24, v 16),
+    which ``select_kernel`` refuses: ``ops.flash_attention`` pads q, k and
+    v with zero columns to 32 and 16, keeps the scale of D 24, and slices
+    the output back, so the kernels run.  Values and gradients against the
+    plain version of the unpadded inputs in float32, within the bf16
+    kernels' tolerances (2^-6 relative + 2e-3; gradients 2^-6 of their
+    largest magnitude); the output comes back contiguous."""
+    from repro_torch import device as D
+    from repro_torch.kernels.flash_attention import kernel, ref
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+
+    g = torch.Generator().manual_seed(5)
+    q, k, v, do = (torch.randn(*s, generator=g).to(dev, torch.bfloat16)
+                   for s in ((2, 40, 4, 24), (2, 40, 2, 24), (2, 40, 2, 16),
+                             (2, 40, 4, 16)))
+    with pytest.raises(ValueError, match="multiples of 16"):
+        kernel.select_kernel(q, k, v)
+    opts = dict(causal=True, window=None, cap=None, scale=24 ** -0.5,
+                q_offset=0)
+    leaves = [t.float().requires_grad_(True) for t in (q, k, v)]
+    want = ref.flash_attention_ref(*leaves, **opts)
+    (want * do.float()).sum().backward()
+    D.reset_launch_counts()
+    with torch.no_grad():
+        served = flash_attention(q, k, v)
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+    out = flash_attention(qg, kg, vg)
+    out.backward(do)
+    counts = D.launch_counts()
+    assert (counts["flash_attention"], counts["flash_attention_lse"],
+            counts["flash_attention_bwd_bf16"]) == (1, 1, 1)
+    for got in (served, out):
+        assert got.shape == (2, 40, 4, 16) and got.is_contiguous()
+        torch.testing.assert_close(got.float(), want.detach(),
+                                   rtol=2.0 ** -6, atol=2e-3)
+    for a, t in zip((qg, kg, vg), leaves):
+        assert a.grad.dtype == torch.bfloat16 and a.grad.shape == a.shape
+        torch.testing.assert_close(a.grad.float(), t.grad, rtol=0,
+                                   atol=2 ** -6 * float(t.grad.abs().max()))
+
+
+def test_bf16_mla_at_its_smoke_head_dim_serves_and_trains(dev):
+    """DeepSeek-V2-Lite's registered smoke config at its own MLA widths
+    (q/k 24 = 16 + 8 rope, v 16) in bf16 on the card, beside the widened
+    case above.  Serving: the prefill logits (the bf16 serving kernel)
+    held to the float32 CPU logits at the same bf16-valued weights by the
+    bf16 training rule (relative L2 at most 1.25 times the CPU bf16
+    run's plus 0.01), and ``generate`` returns finite tokens.  Training:
+    ``test_bf16_train_gradients_on_card_match_cpu``'s check."""
+    from repro_torch import device as D
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_model
+    from repro_torch.serving.engine import generate, make_prefill_step
+    from repro_torch.train.tree import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config("deepseek-v2-lite-16b")
+    assert cfg.head_dim == 24 and cfg.v_head_dim == 16
+    p16 = init_model(torch.Generator().manual_seed(0), cfg, torch.bfloat16,
+                     device="cpu")
+    runs = {"cuda": _tree_to(p16, dev), "cpu": p16,
+            "f32": tree_map(lambda t: t.float().clone(), p16)}
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 24))
+    logits = {}
+    D.reset_launch_counts()
+    with torch.no_grad():
+        for name, p in runs.items():
+            where = "cuda" if name == "cuda" else "cpu"
+            batch = {"tokens": torch.from_numpy(toks).to(where)}
+            logits[name] = make_prefill_step(cfg)(p, batch)[0].float().cpu()
+        out = generate(runs["cuda"], cfg, toks[:, :8], 6)
+    assert D.launch_counts()["flash_attention"] > 0
+    assert torch.isfinite(logits["cuda"]).all()
+    (card,), card_tree = _rel_l2([logits["cuda"]], [logits["f32"]])
+    _, cpu_tree = _rel_l2([logits["cpu"]], [logits["f32"]])
+    assert card_tree <= 1.25 * cpu_tree + 0.01, (card_tree, cpu_tree)
+    assert np.asarray(out).shape[0] == 2
+    assert np.all((np.asarray(out) >= 0) & (np.asarray(out) < cfg.vocab_size))
+    _check_bf16_train_gradients(dev, cfg, False)
 
 
 def test_launch_train_on_card(dev, tmp_path):

@@ -186,6 +186,59 @@ def test_tensor_join_device_matches_reference(n_build, n_probe, domain,
     _same_relation(out_t.to_host(), out_j.to_host())
 
 
+@pytest.mark.parametrize("case", ["permutation", "offset", "sparse_probe",
+                                  "masked", "hidden_duplicate"])
+def test_dense_device_join_equals_reference_sorted_join(case, monkeypatch):
+    """``tensor_join_device(dense=...)``, the route of a build side whose
+    keys the host knows to be unique in a narrow range (a guard's takeover
+    of a star join), runs the join kernels' table build and probe and gives
+    the reference's sorted-core rows in the same order, with its one host
+    sync.  A build key that repeats after all (a sketch's wrong guess) is
+    caught by the device's duplicate flag and re-runs the sorted core: the
+    same rows, one sync more."""
+    import repro_torch.core.fused as F
+
+    calls = []
+    real = F.radix_hash_probe_dispatch
+
+    def spy(*args):
+        calls.append(args[2])
+        return real(*args)
+
+    monkeypatch.setattr(F, "radix_hash_probe_dispatch", spy)
+    rng = np.random.default_rng(8)
+    n = 3000
+    kmin = 1000 if case == "offset" else 0
+    b = {"k": rng.permutation(n).astype(np.int64) + kmin,
+         "v": rng.integers(0, 1 << 30, n).astype(np.int64)}
+    hi = 4 * n if case == "sparse_probe" else n
+    p = {"k": rng.integers(-5, hi, 5000).astype(np.int64) + kmin,
+         "w": rng.integers(0, 1 << 30, 5000).astype(np.int64)}
+    if case == "hidden_duplicate":
+        b["k"][7] = b["k"][8]
+    bj, bt = _both(b)
+    pj, pt = _both(p)
+    dense = T.tensor_engine.dense_join_domain(bt, "k")
+    if case == "hidden_duplicate":
+        assert dense is None  # the sketch sees every row here: no guess
+        dense = (T.capacity_bucket(n), kmin)
+    assert dense == (T.capacity_bucket(n), kmin)
+    dbj, dpj = R.DeviceRelation.from_host(bj), R.DeviceRelation.from_host(pj)
+    dbt = T.DeviceRelation.from_host(bt, CPU)
+    dpt = T.DeviceRelation.from_host(pt, CPU)
+    if case == "masked":
+        mb, mp = rng.random(n) < 0.7, rng.random(5000) < 0.6
+        dbj, dpj = dbj.mask_and(jnp.asarray(mb)), dpj.mask_and(jnp.asarray(mp))
+        dbt = dbt.mask_and(torch.from_numpy(mb))
+        dpt = dpt.mask_and(torch.from_numpy(mp))
+    out_j, m_j = R.tensor_join_device(dbj, dpj, "k")
+    out_t, m_t = T.tensor_join_device(dbt, dpt, "k", dense=dense)
+    assert calls == [dense[0]]
+    assert m_t.host_syncs == m_j.host_syncs + (case == "hidden_duplicate")
+    assert m_t.rows_out == m_j.rows_out
+    _same_relation(out_t.to_host(), out_j.to_host())
+
+
 @pytest.mark.parametrize("n_build,n_probe,domain", [(1000, 3000, 5000),
                                                     (300, 700, 17)])
 def test_tensor_join_host_api_and_capacity_match_reference(n_build, n_probe,

@@ -264,3 +264,45 @@ def test_bf16_backward_kernel_wrapper_refuses_what_it_cannot_take():
     assert not kernel.aligned16(_bf(1, 8, 2, 68)[..., :64])
     assert not kernel.aligned16(_bf(1, 8, 2, 68)[..., 4:])
     assert kernel.aligned16(_bf(1, 8, 2, 68, dtype=torch.float32)[..., :64])
+
+
+@pytest.mark.parametrize("D,Dv,dtype", [(24, 16, "float32"),
+                                        (24, 16, "bfloat16"),
+                                        (8, 20, "float32"),
+                                        (40, 40, "bfloat16")])
+def test_zero_padded_head_dims_equal_the_unpadded_plain_version(D, Dv, dtype):
+    """What ``ops.flash_attention`` does for a bf16 head dim that the
+    kernel does not take (DeepSeek-V2-Lite's smoke MLA: q/k 24, v 16):
+    q, k and v zero-padded to multiples of 16 by ``ops._pad16``, run with
+    the unpadded D's scale, the output sliced back to Dv.  It equals the
+    plain version on the unpadded inputs in values and in the gradients of
+    q, k and v (which come back through the pad at the unpadded widths),
+    and the reference's chunked attention at the same widths."""
+    (qj, kj, vj), (qt, kt, vt) = _mk(2, 48, 4, 2, D, dtype, seed=13, Dv=Dv)
+    g = torch.from_numpy(np.random.default_rng(14).normal(
+        size=(2, 48, 4, Dv)).astype(np.float32)).to(_TDT[dtype])
+    opts = dict(causal=True, window=None, cap=30.0, scale=D ** -0.5,
+                q_offset=0, q_blk=16, kv_blk=16)
+    runs = {}
+    for name in ("padded", "plain"):
+        leaves = [t.clone().requires_grad_(True) for t in (qt, kt, vt)]
+        args = ([ops._pad16(t) for t in leaves] if name == "padded"
+                else leaves)
+        if name == "padded":
+            assert all(a.shape[-1] % 16 == 0 and a.is_contiguous()
+                       for a in args)
+        out = ref.flash_attention_ref(*args, **opts)[..., :Dv]
+        (out.float() * g.float()).sum().backward()
+        runs[name] = (out.detach(), [t.grad for t in leaves])
+    (out, grads), (want, wgrads) = runs["padded"], runs["plain"]
+    assert out.shape == want.shape == (2, 48, 4, Dv)
+    tol = 1e-6 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+    for a, b, t in zip(grads, wgrads, (qt, kt, vt)):
+        assert a.shape == t.shape and a.dtype == t.dtype
+        torch.testing.assert_close(a.float(), b.float(), rtol=0,
+                                   atol=tol * float(b.float().abs().max()))
+    jwant = j_chunked(qj, kj, vj, causal=True, cap=30.0, q_chunk=16,
+                      kv_chunk=16)
+    jtol = 2e-5 if dtype == "float32" else 3e-2
+    np.testing.assert_allclose(_np(out), _np(jwant), rtol=jtol, atol=jtol)

@@ -1,4 +1,4 @@
-"""Shared by ``tests/test_torch_train_{moe,dense,other}.py`` and
+"""Shared by ``tests/test_torch_train_{moe,moe_deepseek,moe_jamba,dense,other}.py`` and
 ``tests/test_torch_train_bf16_*.py``: one architecture's smoke
 config trained by the reference's ``make_train_step`` and by the port's on
 the same batch, from the same weights (the reference's, handed across with
