@@ -14,7 +14,8 @@ the probe codes in order and shuffled, then Q-a and Q-b); ``segment-sum``
 (the segment sum's cases at Q-c's shape, then Q-c and Q-e); ``sharded``
 (phase 5b, after the single-device Q-a; with ``--profile``, traces of
 both); ``pressure`` (phase 4b); ``lm`` (phase 6); ``train`` (phase 2's
-training rows, then phase 8); ``dryrun`` (phase 9).
+training rows, then phase 8); ``dryrun`` (phase 9); ``cards`` (phase 10,
+on a machine with four cards).
 
 Phases (any mismatch or exception ends the run with a non-zero exit code):
 
@@ -89,8 +90,10 @@ Phases (any mismatch or exception ends the run with a non-zero exit code):
    CUDA error propagates);
 5. the four queries at a small scale on the card and on the CPU
    (``device="cpu"``, the plain versions), which must agree exactly;
-5b. the sharded fused fragment over the card's eight logical lanes, on
-   the SF1 tables still built: (a) fig15's fragment
+5b. the sharded fused fragment over eight logical lanes, its partitions
+   placed on the cards present (``device="cuda"``; the default run has
+   one, and the lines name the cards used), on the SF1 tables still
+   built: (a) fig15's fragment
    (``benchmarks/figures.py``: 1,000,000 unique sparse build keys, probe
    keys drawn from them, ``w < 500``, ``sum(b_v)``) through ``run_fused``
    at 1, 2, 4 and 8 shards, 2 cold and 7 warm runs each, every scalar equal
@@ -99,9 +102,12 @@ Phases (any mismatch or exception ends the run with a non-zero exit code):
    ``Session(policy="auto", max_shards=8)``, whose selector must pick the
    sharded program (a forced ``tensor`` policy decides one device, as in
    the reference), held to phase 3's oracle with 1 warm sync and 0 warm
-   H2D bytes, its cold time beside the host partition pass alone; (c) a
-   governed ``QueryServer(max_shards=8)`` closed loop over Q-a with no
-   failed or shed query, no over-budget event and every lane dispatched.
+   H2D bytes, its cold time beside the host partition pass alone, the
+   partitioned layout's bytes on each card of the placement (every one
+   must hold its block, no other any) and each card's allocated bytes;
+   (c) a governed ``QueryServer(max_shards=8)`` closed loop over Q-a with
+   no failed or shed query, no over-budget event and every lane
+   dispatched.
    The sharded program is plain PyTorch (the reference's per-shard body
    reaches no Pallas kernel), so it adds no kernel row;
 6. LM serving on the card, three models in turn at full width in
@@ -159,7 +165,21 @@ Phases (any mismatch or exception ends the run with a non-zero exit code):
    (counters from 0), the group torn down, and the same 2 steps unsharded
    from the same weights: losses within 1e-6; then each dry-run record
    (per-device argument and temp GiB, counted flops, useful-flops ratio,
-   dominant roofline term; all predictions) must be ok.
+   dominant roofline term; all predictions) must be ok;
+10. four cards (``--only cards``, not in the default run; it fails with
+   fewer than four): (1) Q-a as in 5b(b) with its eight partitions on 1
+   (``device="cuda:0"``), 2 (``("cuda:0", "cuda:1")``) and 4 cards
+   (``"cuda"``), each held to phase 3's oracle with 1 warm sync and 0
+   warm H2D bytes, every card of the placement holding its block; (2)
+   fig15's fragment at 1, 2, 4 and 8 shards over the four cards; (3) 5b's
+   governed closed loop over the four cards; (4) phase 9's step on a
+   (2, 2) mesh of four NCCL ranks, a card each (spawned here): each
+   rank's bytes against the dry-run's plan for that mesh, the steps
+   through the hand kernels with each rank's launches counted (the
+   float32 attention forward and backward, dispatch, combine and the
+   routing-weight gradient on every rank), the group torn down, the same
+   steps unsharded on card 0 from the same weights: losses within 1e-4.
+   Q-a takes 20 warm runs a placement here and the mesh 3 steps.
 
 Phase 2 also holds the four LM kernels against their plain versions at
 phase 6's shapes; their ``launches`` come from the phase 6 run of the
@@ -2567,7 +2587,8 @@ def pressure_calls(dev, seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 5b: the sharded fragment over the card's eight logical lanes
+# Phase 5b: the sharded fragment over eight logical lanes, placed on
+# the cards present
 # ---------------------------------------------------------------------------
 
 FIG15_ROWS = 1_000_000       # benchmarks/figures.py fig15's full size
@@ -2610,10 +2631,12 @@ def check_lanes(label: str, lanes) -> None:
 
 def sharded_fig15(seed: int, profile: bool = False) -> dict:
     """(a) fig15's fragment through ``run_fused(device="cuda")`` at shards
-    1, 2, 4 and 8, each with its own broker: ``SHARD_COLD`` cold runs, then
-    ``SHARD_WARM`` warm ones, every scalar equal to the oracle; warm runs
-    take 1 host sync on ``shards`` lanes and, sharded, upload nothing.
-    With ``profile``, one more warm run at 1 and at 8 shards is traced."""
+    1, 2, 4 and 8 (placed on every card present), each with its own
+    broker: ``SHARD_COLD`` cold runs, then ``SHARD_WARM`` warm ones, every
+    scalar equal to the oracle; warm runs take 1 host sync on ``shards``
+    lanes and, sharded, upload nothing.  With ``profile``, one more warm
+    run at 1 and at 8 shards is traced."""
+
     import types
 
     from repro_torch.core import ResourceBroker, run_fused
@@ -2648,11 +2671,19 @@ def sharded_fig15(seed: int, profile: bool = False) -> dict:
                 device="cuda"))
             print_profile(f"fig15 at {shards} shard(s)", *traced_run(run))
         out[shards] = {"cold_s": cold, "warm_p50_s": statistics.median(warm),
-                       "warm_s": warm}
+                       "warm_s": warm, "cards": placed_on("cuda", shards)}
     for shards in SHARDS:
         out[shards]["single_over_sharded"] = (out[1]["warm_p50_s"]
                                               / out[shards]["warm_p50_s"])
     return out
+
+
+def print_fig15(shards: int, r: dict) -> None:
+    print(f"fig15 fragment, {FIG15_ROWS} rows, {shards} shard(s) on "
+          f"{len(r['cards'])} card(s): warm p50 {r['warm_p50_s'] * 1e3:.3f} "
+          f"ms over {SHARD_WARM} (single-device p50 / this "
+          f"{r['single_over_sharded']:.3f}), cold "
+          f"{[round(c, 4) for c in r['cold_s']]} s", flush=True)
 
 
 def partition_pass_s(orders, lineitem) -> float:
@@ -2681,25 +2712,45 @@ def check_sharded_qa(res, want) -> None:
     check_answer("Q-a", res, want)
 
 
-def sharded_qa(orders, lineitem, want, profile: bool = False) -> dict:
-    """(b) Q-a at SF1 through ``Session(policy="auto", max_shards=8)``: the
-    selector must price the sharded program lower (a forced ``tensor``
-    policy decides one device, as in the reference), every answer equals
-    the oracle, and warm runs take 1 host sync and upload nothing.  With
-    ``profile``, one more warm run is traced."""
-    from repro_torch.core import Session
+def placed_on(device, parts: int = LANES) -> list:
+    """The cards ``parts`` partitions are placed on for ``device``."""
+    from repro_torch.distributed.sharding import partition_placement
+
+    return [str(d) for d in partition_placement(parts, device).devices]
+
+
+def allocated_per_card() -> list:
+    import torch
+
+    return [torch.cuda.memory_allocated(i)
+            for i in range(torch.cuda.device_count())]
+
+
+def sharded_qa(orders, lineitem, want, profile: bool = False,
+               device="cuda", runs: int = WARM_RUNS) -> dict:
+    """(b) Q-a at SF1 through ``Session(policy="auto", max_shards=8)``,
+    its partitions placed on ``device``'s cards: the selector must price
+    the sharded program lower (a forced ``tensor`` policy decides one
+    device, as in the reference), every answer equals the oracle, warm
+    runs take 1 host sync and upload nothing, and every card of the
+    placement holds its block of the partitioned layout (none other holds
+    any).  With ``profile``, one more warm run is traced."""
+    from repro_torch.core import Relation, Session
+    from repro_torch.core.partition import resident_partition_bytes
 
     sess = Session(work_mem=1 << 20, policy="auto", max_shards=LANES,
-                   device="cuda")
-    sess.register("orders", orders)
-    sess.register("lineitem", lineitem)
+                   device=device)
+    tables = {"orders": Relation.from_dict(orders),
+              "lineitem": Relation.from_dict(lineitem)}
+    for name, rel in tables.items():
+        sess.register(name, rel)
     q = queries(sess)["Q-a"]
     t0 = time.perf_counter()
     res = q.collect()
     cold = time.perf_counter() - t0
     check_sharded_qa(res, want)
     reason = res.decisions[-1].reason
-    results, warm = warm_runs("Q-a", q, want)
+    results, warm = warm_runs("Q-a", q, want, runs)
     for r in results:
         check_sharded_qa(r, want)
         if (r.total_host_syncs, r.total_h2d_bytes) != (1, 0):
@@ -2707,9 +2758,18 @@ def sharded_qa(orders, lineitem, want, profile: bool = False) -> dict:
                  f"{r.total_h2d_bytes} B")
     if profile:
         print_profile("sharded Q-a", *traced_run(q))
+    cards = placed_on(device)
+    resident = {}
+    for rel in tables.values():
+        for card, nbytes in resident_partition_bytes(rel).items():
+            resident[card] = resident.get(card, 0) + nbytes
+    if sorted(resident) != sorted(cards) or min(resident.values()) <= 0:
+        fail(f"sharded Q-a on {cards}: the partitioned layout is on "
+             f"{resident}")
     return {"cold_s": cold, "cold_h2d_bytes": res.total_h2d_bytes,
             "warm_p50_s": statistics.median(warm), "warm_s": warm,
-            "decision": reason}
+            "decision": reason, "cards": cards, "resident_bytes": resident,
+            "allocated_bytes": allocated_per_card()}
 
 
 def sharded_serving(orders, lineitem, want) -> dict:
@@ -2736,6 +2796,18 @@ def sharded_serving(orders, lineitem, want) -> dict:
                                 for lane in rep.broker.lanes]}
 
 
+def print_sharded_qa(r: dict, pass_s: float) -> None:
+    print(f"sharded Q-a (SF1, {LANES} lanes on {len(r['cards'])} card(s) "
+          f"{r['cards']}): cold {r['cold_s']:.4f} s ({r['cold_h2d_bytes']} "
+          f"B uploaded; the host partition pass alone {pass_s:.4f} s, the "
+          f"rest {r['cold_s'] - pass_s:.4f} s), warm p50 "
+          f"{r['warm_p50_s'] * 1e3:.3f} ms over {len(r['warm_s'])} (min "
+          f"{min(r['warm_s']) * 1e3:.3f}, max {max(r['warm_s']) * 1e3:.3f}); "
+          f"partitioned "
+          f"layout per card {r['resident_bytes']} B, allocated per card "
+          f"{r['allocated_bytes']} B; {r['decision']}", flush=True)
+
+
 def sharded_phase(orders, lineitem, want, seed: int,
                   profile: bool = False) -> dict:
     """Phase 5b: (a), (b) and (c), with the device memory they peak at;
@@ -2749,18 +2821,10 @@ def sharded_phase(orders, lineitem, want, seed: int,
     out = {"fig15": sharded_fig15(seed, profile)}
     for shards in SHARDS:
         r = out["fig15"][shards]
-        print(f"fig15 fragment, {FIG15_ROWS} rows, {shards} shard(s): warm "
-              f"p50 {r['warm_p50_s'] * 1e3:.3f} ms over {SHARD_WARM} "
-              f"(single-device p50 / this {r['single_over_sharded']:.3f}), "
-              f"cold {[round(c, 4) for c in r['cold_s']]} s", flush=True)
+        print_fig15(shards, r)
     out["partition_pass_s"] = partition_pass_s(orders, lineitem)
     out["Q-a"] = sharded_qa(orders, lineitem, want["Q-a"], profile)
-    r = out["Q-a"]
-    print(f"sharded Q-a (SF1, {LANES} lanes): cold {r['cold_s']:.4f} s "
-          f"({r['cold_h2d_bytes']} B uploaded; the host partition pass "
-          f"alone {out['partition_pass_s']:.4f} s), warm p50 "
-          f"{r['warm_p50_s'] * 1e3:.3f} ms over {WARM_RUNS}; "
-          f"{r['decision']}", flush=True)
+    print_sharded_qa(out["Q-a"], out["partition_pass_s"])
     out["serving"] = sharded_serving(orders, lineitem, want)
     r = out["serving"]
     print(f"sharded closed loop (Q-a, 8 workers x 4): {r['counts']}, p50 "
@@ -3363,19 +3427,18 @@ DRYRUN_TIMEOUT = 900
 ALLOC_GRANULE = 512
 ALLOC_UNSPLIT = 1 << 20
 
-# the dry-run's argument bytes for phase 9's cut on a (1, 1) mesh, planned
-# on the meta device in a process of its own
+# the dry-run's argument bytes for phase 9's cut on a (data, model) mesh
+# (rank 0's shards), planned on the meta device in a process of its own
 _PLAN_ARGS = """
 import json, sys, dataclasses, torch
 from repro_torch.configs import get_config
 from repro_torch.configs.shapes import ShapeSpec
 from repro_torch.launch import dryrun as D
 from repro_torch.launch.mesh import make_local_mesh
-arch, layers, batch, seq = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), \
-    int(sys.argv[4])
+arch, layers, batch, seq, data, model = sys.argv[1], *map(int, sys.argv[2:])
 cfg = dataclasses.replace(get_config(arch), num_layers=layers)
-with D.fake_group(1):
-    mesh = make_local_mesh(1, 1, device_type="cpu")
+with D.fake_group(data * model):
+    mesh = make_local_mesh(data, model, device_type="cpu")
     _, args = D.build_cell(cfg, ShapeSpec("mesh", seq, batch, "train"), mesh,
                            {"microbatches": 1}, dtype=torch.float32)
     print(json.dumps(D.argument_bytes(args)))
@@ -3434,62 +3497,50 @@ def _finish_dryrun(procs, out: Path) -> dict:
     return records
 
 
-def mesh_phase(seed: int, root: Path):
-    """Phase 9.  The production dry-run's two cells start in their own
-    processes.  Meanwhile, on the card: a process group of one rank over
-    NCCL and ``make_local_mesh(1, 1)``; Phi-3.5-MoE at full width and
-    ``TRAIN_LAYERS`` layers in float32 with AdamW (``TRAIN_LR``), its
-    parameters, AdamW state and batch laid out by ``param_specs`` /
-    ``batch_specs`` as DTensors, whose bytes on the card must equal the
-    dry-run's per-device argument bytes for the same cut on a (1, 1) mesh,
-    each block rounded up to the allocator's ``ALLOC_GRANULE``;
-    ``MESH_STEPS`` steps of ``make_train_step`` under the mesh (counters
-    from 0: the flash-attention forward and backward, dispatch, combine and
-    ``moe_combine_weight_grad`` must launch), then the group torn down and
-    the same steps unsharded from the same weights, whose losses the
-    sharded ones must equal within 1e-6 (relative).  The allocated bytes
-    are the plan's apart from the allocator's rounding: each block a
-    multiple of ``ALLOC_GRANULE``, and a block above ``ALLOC_UNSPLIT``
-    keeping its 2 MiB segment's remainder when that is no larger.  Then the dry-run's
-    records (each must be ok).  Returns (report, launch counts)."""
+def _plan(root: Path, data: int, model: int) -> subprocess.Popen:
+    """Start the dry-run's plan of phase 9's cut on a (data, model) mesh in
+    a process of its own; :func:`_planned` reads its per-tensor bytes."""
+    return subprocess.Popen(
+        [sys.executable, "-c", _PLAN_ARGS, LM_ARCH, str(TRAIN_LAYERS),
+         str(PREFILL_BATCH), str(PREFILL_LEN), str(data), str(model)],
+        env=dict(__import__("os").environ, PYTHONPATH=str(root / "src")),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def _planned(proc: subprocess.Popen, label: str) -> list:
+    try:
+        out, err = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail(f"{label}: the dry-run plan is still running after 600 s")
+    if proc.returncode != 0:
+        fail(f"{label}: the dry-run plan failed\n{err[-3000:]}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def _mesh_model(seed: int, dev):
+    """Phase 9's cut on ``dev``: ``(cfg, step, fresh)``, where ``fresh()``
+    makes the weights from ``seed`` (the same on every card), AdamW's state
+    and the batch."""
     import dataclasses
 
     import numpy as np
     import torch
-    import torch.distributed as dist
 
-    from repro_torch import device as D
     from repro_torch.configs import get_config
-    from repro_torch.distributed.sharding import (PartitionSpec,
-                                                  batch_specs,
-                                                  distribute_tree,
-                                                  param_specs)
-    from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.models import init_model
-    from repro_torch.models.pspec import mesh_scope
     from repro_torch.train.optimizer import adamw
     from repro_torch.train.trainer import default_policy, make_train_step
     from repro_torch.train.tree import tree_leaves
 
-    out = root / "build" / "dryrun_torch"
-    procs = _start_dryrun(root, out)
-    dev = torch.device("cuda")
     cfg = dataclasses.replace(get_config(LM_ARCH), num_layers=TRAIN_LAYERS)
-    plan = subprocess.run(
-        [sys.executable, "-c", _PLAN_ARGS, LM_ARCH, str(TRAIN_LAYERS),
-         str(PREFILL_BATCH), str(PREFILL_LEN)],
-        env=dict(__import__("os").environ, PYTHONPATH=str(root / "src")),
-        capture_output=True, text=True, timeout=600)
-    if plan.returncode != 0:
-        fail(f"mesh: the (1, 1) dry-run plan failed\n{plan.stderr[-3000:]}")
-    planned = json.loads(plan.stdout.strip().splitlines()[-1])
     rng = np.random.default_rng(seed)
     batch_np = {k: rng.integers(0, cfg.vocab_size, (PREFILL_BATCH,
                                                     PREFILL_LEN),
                                 dtype=np.int32) for k in ("tokens", "labels")}
     opt = adamw(lr=TRAIN_LR)
     step = make_train_step(cfg, opt, default_policy(cfg))
-    report = {"arch": cfg.name, "layers": cfg.num_layers}
 
     def fresh():
         params = init_model(torch.Generator(device=dev).manual_seed(seed),
@@ -3499,23 +3550,128 @@ def mesh_phase(seed: int, root: Path):
         return params, opt.init(params), {
             k: torch.from_numpy(v).to(dev) for k, v in batch_np.items()}
 
-    def losses_of(params, state, batch, scope):
-        out = []
-        with scope:
-            for i in range(MESH_STEPS):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                params, state, m = step(params, state, batch)
-                loss = m["loss"]
-                loss = float(loss.full_tensor() if hasattr(
-                    loss, "full_tensor") else loss)
-                torch.cuda.synchronize()
-                out.append((loss, time.perf_counter() - t0))
-        return out
+    return cfg, step, fresh
 
+
+def _mesh_losses(step, params, state, batch, scope,
+                 steps: int = MESH_STEPS) -> list:
+    """``steps`` steps: ``(loss, seconds)`` of each."""
+    import torch
+
+    out = []
+    with scope:
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, batch)
+            loss = m["loss"]
+            loss = float(loss.full_tensor() if hasattr(
+                loss, "full_tensor") else loss)
+            torch.cuda.synchronize()
+            out.append((loss, time.perf_counter() - t0))
+    return out
+
+
+def _laid_out(label: str, mesh, cfg, fresh, planned: list):
+    """The model laid out on ``mesh`` by ``param_specs`` / ``batch_specs``,
+    its bytes on this rank's card held to the dry-run's ``planned`` ones,
+    each block rounded up to the allocator's ``ALLOC_GRANULE`` and a block
+    above ``ALLOC_UNSPLIT`` keeping its 2 MiB segment's remainder when
+    that is no larger.  Returns ``(params, state, batch, figures)``."""
+    import torch
+
+    from repro_torch.distributed.sharding import (PartitionSpec,
+                                                  batch_specs,
+                                                  distribute_tree,
+                                                  param_specs)
+    from repro_torch.train.tree import tree_leaves
+
+    # the group's and DTensor's one-time state (the communicators of both
+    # axes, the RNG tracker) made before the count starts: none of it is
+    # the model's
+    before = torch.cuda.memory_allocated()
+    width = max(mesh.shape)
+    distribute_tree(torch.zeros(width, width, device="cuda"), mesh,
+                    PartitionSpec(*mesh.mesh_dim_names))
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    params, state, batch = fresh()
+    params = distribute_tree(params, mesh, param_specs(params, cfg))
+    state = distribute_tree(state, mesh, param_specs(state, cfg))
+    batch = distribute_tree(batch, mesh, batch_specs(batch, mesh))
+    gc.collect()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - base
+    on_card = [t.to_local().numel() * t.to_local().element_size()
+               for t in tree_leaves((params, state, batch))]
+    rounded = sum(-(-n // ALLOC_GRANULE) * ALLOC_GRANULE for n in planned)
+    large = sum(n > ALLOC_UNSPLIT for n in planned)
+    unsplit = held - rounded
+    figures = {"arch": cfg.name, "layers": cfg.num_layers,
+               "first_layout_bytes": base - before,
+               "argument_bytes": sum(on_card), "tensors": len(on_card),
+               "planned_bytes": sum(planned), "allocated_bytes": held,
+               "planned_rounded_bytes": rounded, "unsplit_bytes": unsplit,
+               "large_blocks": large}
+    if on_card != planned or not 0 <= unsplit <= large * ALLOC_UNSPLIT \
+            or unsplit % ALLOC_GRANULE:
+        fail(f"{label}: the card's argument bytes differ from the dry-run's "
+             f"plan ({figures})")
+    return params, state, batch, figures
+
+
+def _print_layout(label: str, f: dict) -> None:
+    print(f"{label}: the group's first layout left "
+          f"{f['first_layout_bytes']} B allocated; {f['arch']} at "
+          f"{f['layers']} layers, float32, AdamW: {f['tensors']} argument "
+          f"tensors, {f['argument_bytes']} B on the card's shards, the "
+          f"dry-run plans {f['planned_bytes']} B; allocated "
+          f"{f['allocated_bytes']} B = the plan + "
+          f"{f['planned_rounded_bytes'] - f['planned_bytes']} B of rounding "
+          f"to {ALLOC_GRANULE}-byte blocks + {f['unsplit_bytes']} B of "
+          f"segment remainders kept unsplit (at most {ALLOC_UNSPLIT} B in "
+          f"each of the {f['large_blocks']} blocks above it)", flush=True)
+
+
+MESH_KERNELS = ("flash_attention_f32", "flash_attention_bwd_f32",
+                "moe_dispatch", "moe_combine", "moe_combine_weight_grad")
+
+
+def mesh_phase(seed: int, root: Path):
+    """Phase 9.  The production dry-run's two cells start in their own
+    processes.  Meanwhile, on the card: a process group of one rank over
+    NCCL and ``make_local_mesh(1, 1)``; Phi-3.5-MoE at full width and
+    ``TRAIN_LAYERS`` layers in float32 with AdamW (``TRAIN_LR``), its
+    parameters, AdamW state and batch laid out by ``param_specs`` /
+    ``batch_specs`` as DTensors, whose bytes on the card must equal the
+    dry-run's per-device argument bytes for the same cut on a (1, 1) mesh,
+    apart from the allocator's rounding (:func:`_laid_out`);
+    ``MESH_STEPS`` steps of ``make_train_step`` under the mesh (counters
+    from 0: the flash-attention forward and backward, dispatch, combine and
+    ``moe_combine_weight_grad`` must launch), then the group torn down and
+    the same steps unsharded from the same weights, whose losses the
+    sharded ones must equal within 1e-6 (relative).  Then the dry-run's
+    records (each must be ok).  Returns (report, launch counts)."""
     import contextlib
     import shutil
     import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import device as D
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.pspec import mesh_scope
+
+    out = root / "build" / "dryrun_torch"
+    procs = _start_dryrun(root, out)
+    plan = _plan(root, 1, 1)
+    dev = torch.device("cuda")
+    cfg, step, fresh = _mesh_model(seed, dev)
+    planned = _planned(plan, "mesh")
+    report = {"arch": cfg.name, "layers": cfg.num_layers}
 
     # the group meets through a file (no TCP port another run could take)
     rdzv = tempfile.mkdtemp(prefix="rdzv")
@@ -3525,46 +3681,11 @@ def mesh_phase(seed: int, root: Path):
                                 "cuda", torch.cuda.current_device()))
     try:
         mesh = make_local_mesh(1, 1)
-        # the group's and DTensor's one-time state (the communicator, the
-        # RNG tracker) made before the count starts: none of it is the
-        # model's
-        before = torch.cuda.memory_allocated()
-        distribute_tree(torch.zeros(1, device=dev), mesh, PartitionSpec())
-        gc.collect()
-        torch.cuda.empty_cache()
-        base = torch.cuda.memory_allocated()
-        print(f"mesh (1, 1): the group's first layout left {base - before} "
-              f"B allocated", flush=True)
-        params, state, batch = fresh()
-        params = distribute_tree(params, mesh, param_specs(params, cfg))
-        state = distribute_tree(state, mesh, param_specs(state, cfg))
-        batch = distribute_tree(batch, mesh, batch_specs(batch, mesh))
-        gc.collect()
-        torch.cuda.synchronize()
-        held = torch.cuda.memory_allocated() - base
-        local = [t.to_local() for t in tree_leaves((params, state, batch))]
-        on_card = [t.numel() * t.element_size() for t in local]
-        rounded = sum(-(-n // ALLOC_GRANULE) * ALLOC_GRANULE
-                      for n in planned)
-        # a block above 1 MiB comes from a segment rounded up to 2 MiB and
-        # keeps the segment's remainder when it is 1 MiB or less
-        large = sum(n > ALLOC_UNSPLIT for n in planned)
-        unsplit = held - rounded
-        print(f"mesh (1, 1) over NCCL: {cfg.name} at {cfg.num_layers} "
-              f"layers, float32, AdamW: {len(on_card)} argument tensors, "
-              f"{sum(on_card)} B on the card's shards, the dry-run plans "
-              f"{sum(planned)} B ({len(planned)} tensors); allocated "
-              f"{held} B = the plan + {rounded - sum(planned)} B of "
-              f"rounding to {ALLOC_GRANULE}-byte blocks + {unsplit} B of "
-              f"segment remainders kept unsplit (at most {ALLOC_UNSPLIT} "
-              f"B in each of the {large} blocks above it)", flush=True)
-        if on_card != planned or not 0 <= unsplit <= large * ALLOC_UNSPLIT \
-                or unsplit % ALLOC_GRANULE:
-            fail("mesh: the card's argument bytes differ from the "
-                 "dry-run's plan")
-        del local
+        params, state, batch, figures = _laid_out("mesh", mesh, cfg, fresh,
+                                                  planned)
+        _print_layout("mesh (1, 1) over NCCL", figures)
         D.reset_launch_counts()
-        sharded = losses_of(params, state, batch, mesh_scope(mesh))
+        sharded = _mesh_losses(step, params, state, batch, mesh_scope(mesh))
         launches = D.launch_counts()
         del params, state, batch
     finally:
@@ -3572,7 +3693,7 @@ def mesh_phase(seed: int, root: Path):
         shutil.rmtree(rdzv, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
-    plain = losses_of(*fresh(), contextlib.nullcontext())
+    plain = _mesh_losses(step, *fresh(), contextlib.nullcontext())
     gc.collect()
     torch.cuda.empty_cache()
     for i, ((ls, ts), (lp, tp)) in enumerate(zip(sharded, plain), 1):
@@ -3581,21 +3702,180 @@ def mesh_phase(seed: int, root: Path):
               f"{abs(ls - lp) / abs(lp):.3g}", flush=True)
         if not np.isfinite(ls) or abs(ls - lp) > 1e-6 * abs(lp):
             fail(f"mesh step {i}: sharded loss {ls} against {lp}")
-    needed = ("flash_attention_f32", "flash_attention_bwd_f32",
-              "moe_dispatch", "moe_combine", "moe_combine_weight_grad")
-    for k in needed:
+    for k in MESH_KERNELS:
         if launches[k] <= 0:
             fail(f"mesh: kernel {k} was not launched ({launches})")
     print(f"mesh launches ({MESH_STEPS} sharded steps): {launches}",
           flush=True)
-    report.update(argument_bytes=sum(on_card), planned_bytes=sum(planned),
-                  allocated_bytes=held, planned_rounded_bytes=rounded,
+    report.update(argument_bytes=figures["argument_bytes"],
+                  planned_bytes=figures["planned_bytes"],
+                  allocated_bytes=figures["allocated_bytes"],
+                  planned_rounded_bytes=figures["planned_rounded_bytes"],
                   sharded_losses=[x for x, _ in sharded],
                   unsharded_losses=[x for x, _ in plain],
                   sharded_s=[t for _, t in sharded],
                   unsharded_s=[t for _, t in plain], launches=launches)
     report["dryrun"] = _finish_dryrun(procs, out)
     return report, launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 10 (--only cards): the port on four cards
+# ---------------------------------------------------------------------------
+
+CARDS = 4
+#: Q-a's eight partitions on 1, 2 and 4 cards
+CARD_PLACEMENTS = ("cuda:0", ("cuda:0", "cuda:1"), "cuda")
+#: warm runs of each placement's Q-a (phase 3's five leave the p50 to
+#: chance on four cards)
+CARD_WARM_RUNS = 20
+MESH4 = (2, 2)
+MESH4_STEPS = 3       # the first pays NCCL's and the kernels' first calls
+MESH4_TOL = 1e-4      # NCCL's reductions reorder float32 sums
+MESH4_TIMEOUT = 900
+
+
+def mesh_rank(rank: int, world: int, root: str, rdzv: str, seed: int,
+              out: str, planned: list) -> None:
+    """One rank of phase 10's step, on card ``rank`` of a ``MESH4`` NCCL
+    mesh: phase 9's model laid out and held to the dry-run's ``planned``
+    bytes (:func:`_laid_out`), ``MESH4_STEPS`` steps under the mesh with
+    the rank's own launch counts, the group torn down; rank 0 then runs
+    the same steps unsharded from the same weights.  Writes its report to
+    ``out/rank<rank>.json``."""
+    sys.path.insert(0, str(Path(root) / "src"))
+    import contextlib
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import device as D
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.pspec import mesh_scope
+
+    torch.cuda.set_device(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", rank)
+    dist.init_process_group("nccl", init_method=f"file://{rdzv}",
+                            rank=rank, world_size=world, device_id=dev)
+    cfg, step, fresh = _mesh_model(seed, dev)
+    report = {"rank": rank}
+    try:
+        mesh = make_local_mesh(*MESH4)
+        params, state, batch, figures = _laid_out(
+            f"mesh {MESH4} rank {rank}", mesh, cfg, fresh, planned)
+        D.reset_launch_counts()
+        report["sharded"] = _mesh_losses(step, params, state, batch,
+                                         mesh_scope(mesh), MESH4_STEPS)
+        report.update(launches=D.launch_counts(), layout=figures,
+                      peak_allocated_bytes=torch.cuda.max_memory_allocated())
+        del params, state, batch
+    finally:
+        dist.destroy_process_group()
+    if rank == 0:
+        gc.collect()
+        torch.cuda.empty_cache()
+        report["unsharded"] = _mesh_losses(step, *fresh(),
+                                           contextlib.nullcontext(),
+                                           MESH4_STEPS)
+    Path(out, f"rank{rank}.json").write_text(json.dumps(report))
+
+
+def mesh4_phase(seed: int, root: Path) -> dict:
+    """(4) phase 9's step on a ``MESH4`` mesh of ``CARDS`` NCCL ranks, a
+    card each (:func:`mesh_rank`, spawned here and stopped on any
+    failure): every rank's bytes are the dry-run's plan for that mesh
+    apart from the allocator's rounding, and the float32 attention forward
+    and backward, dispatch, combine and the routing-weight gradient launch
+    on every rank; the sharded losses must be within ``MESH4_TOL``
+    (relative) of the unsharded ones."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+
+    planned = _planned(_plan(root, *MESH4), f"mesh {MESH4}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = Path(tempfile.mkdtemp(prefix="rdzv"))
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(
+        mesh_rank, args=(CARDS, str(root), str(tmp / "store"), seed,
+                         str(tmp), planned),
+        nprocs=CARDS, join=False, start_method="spawn")
+    try:
+        deadline = time.monotonic() + MESH4_TIMEOUT
+        while not ctx.join(timeout=max(0.0, deadline - time.monotonic())):
+            if time.monotonic() >= deadline:
+                fail(f"mesh {MESH4}: ranks still running after "
+                     f"{MESH4_TIMEOUT} s")
+        ranks = [json.loads((tmp / f"rank{r}.json").read_text())
+                 for r in range(CARDS)]
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.terminate()
+            proc.join(10)
+        shutil.rmtree(tmp, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    for r in ranks:
+        _print_layout(f"mesh {MESH4} over NCCL, rank {r['rank']}",
+                      r["layout"])
+        missing = [k for k in MESH_KERNELS if r["launches"][k] <= 0]
+        if missing:
+            fail(f"mesh {MESH4} rank {r['rank']}: kernels {missing} were "
+                 f"not launched ({r['launches']})")
+        print(f"mesh {MESH4} rank {r['rank']} launches ({MESH4_STEPS} "
+              f"steps): {r['launches']}; peak allocated "
+              f"{r['peak_allocated_bytes']} B", flush=True)
+        if [x for x, _ in r["sharded"]] != [x for x, _ in
+                                            ranks[0]["sharded"]]:
+            fail(f"mesh {MESH4}: rank {r['rank']}'s losses differ from "
+                 f"rank 0's")
+    sharded, plain = ranks[0]["sharded"], ranks[0]["unsharded"]
+    for i, ((ls, ts), (lp, tp)) in enumerate(zip(sharded, plain), 1):
+        print(f"mesh {MESH4} step {i}: loss {ls!r} sharded on {CARDS} cards "
+              f"({ts:.3f} s), {lp!r} unsharded on one ({tp:.3f} s), "
+              f"relative difference {abs(ls - lp) / abs(lp):.3g}",
+              flush=True)
+        if not np.isfinite(ls) or abs(ls - lp) > MESH4_TOL * abs(lp):
+            fail(f"mesh {MESH4} step {i}: sharded loss {ls} against {lp}")
+    return {"mesh": list(MESH4), "ranks": ranks, "wall_s": wall,
+            "sharded_losses": [x for x, _ in sharded],
+            "unsharded_losses": [x for x, _ in plain],
+            "sharded_s": [t for _, t in sharded],
+            "unsharded_s": [t for _, t in plain]}
+
+
+def cards_calls(seed: int, root: Path) -> dict:
+    """``--only cards``: phase 10 on fresh SF1 tables, ``CARDS`` cards."""
+    import torch
+
+    orders, lineitem = tpch(1.0, seed)
+    want = oracle(orders, lineitem)
+    out = {"cards": torch.cuda.device_count(),
+           "partition_pass_s": partition_pass_s(orders, lineitem), "Q-a": {}}
+    for device in CARD_PLACEMENTS:   # (1) Q-a on 1, 2 and 4 cards
+        r = sharded_qa(orders, lineitem, want["Q-a"], device=device,
+                       runs=CARD_WARM_RUNS)
+        print_sharded_qa(r, out["partition_pass_s"])
+        out["Q-a"][len(r["cards"])] = r
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["fig15"] = sharded_fig15(seed)   # (2)
+    for shards in SHARDS:
+        print_fig15(shards, out["fig15"][shards])
+    out["serving"] = r = sharded_serving(orders, lineitem, want)   # (3)
+    print(f"sharded closed loop on {len(placed_on('cuda'))} cards (Q-a, 8 "
+          f"workers x 4): {r['counts']}, p50 {r['p50_s']:.4f} s, p99 "
+          f"{r['p99_s']:.4f} s, {r['qps']:.1f} q/s, lane dispatches "
+          f"{r['lane_dispatches']}", flush=True)
+    del orders, lineitem, want
+    out["mesh"] = mesh4_phase(seed, root)   # (4)
+    return out
 
 
 #: the ``--only`` phases besides ``lm`` (phase 6, run by ``lm_serving``)
@@ -3612,7 +3892,8 @@ def main() -> None:
                     help="also trace one warm run of each query, and one "
                          "warm prefill and 12 decode steps of each LM with "
                          "torch.profiler, and print where the time goes")
-    ap.add_argument("--only", choices=(*ONLY, "lm", "train", "dryrun"),
+    ap.add_argument("--only", choices=(*ONLY, "lm", "train", "dryrun",
+                                       "cards"),
                     help="run one phase alone and print its numbers as one "
                          "JSON line, to compare two checkouts in turns on "
                          "one card: moe-dispatch times the layer body's "
@@ -3628,7 +3909,10 @@ def main() -> None:
                          "(the memory-pressure checks), lm is phase 6, "
                          "train is phase 2's training rows and phase 8 "
                          "(with --profile, their traces), dryrun is phase 9 "
-                         "(the one-card mesh and the production dry-run)")
+                         "(the one-card mesh and the production dry-run), "
+                         "cards is phase 10 (four cards: Q-a placed on 1, 2 "
+                         "and 4 cards, fig15, the sharded closed loop, the "
+                         "(2, 2) train step)")
     ap.add_argument("--tree", type=Path,
                     help="with --only: drive the repro_torch package of "
                          "this checkout (e.g. a parent commit unpacked with "
@@ -3648,6 +3932,9 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke test needs a "
              "CUDA card")
+    if args.only == "cards" and torch.cuda.device_count() < CARDS:
+        fail(f"--only cards needs {CARDS} cards, and "
+             f"{torch.cuda.device_count()} are visible")
     sys.path.insert(0, str(root / "src"))
     from repro_torch import device as D
 
@@ -3681,7 +3968,7 @@ def main() -> None:
         libs = ("segment_join",)
     elif args.only == "pressure":
         libs = ("segment_join", "multikey_sort")
-    elif args.only == "dryrun":
+    elif args.only in ("dryrun", "cards"):
         libs = ("flash_attention", "flash_attention_bwd", "moe_dispatch")
     for lib in libs:  # the first call builds every source, in parallel
         D.kernel_library(lib)
@@ -3700,6 +3987,8 @@ def main() -> None:
         res = sharded_calls(dev, args.seed, args.profile)
     elif args.only == "dryrun":
         res = {"mesh": mesh_phase(args.seed, root)[0]}
+    elif args.only == "cards":
+        res = cards_calls(args.seed, root)
     elif args.only is not None:
         res = ONLY[args.only](dev, args.seed)
     if args.only is not None:

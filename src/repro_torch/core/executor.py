@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device, to_host
+from ..distributed.sharding import placement_devices
 from .device_relation import DeviceRelation
 from .faults import (DeviceDispatchError, FaultInjector, PreemptedError,
                      RetryPolicy, TransientError)
@@ -189,9 +190,12 @@ class Executor:
                  guards: bool = True, device="cuda"):
         if policy not in ("auto", "linear", "tensor"):
             raise ValueError(policy)
-        # the device every tensor-path operator of this executor runs on;
-        # asking for CUDA without a card raises here, never later
+        # the device every tensor-path operator of this executor runs on,
+        # and the devices its sharded fragments spread over (every visible
+        # card for "cuda"); asking for a card that is not there raises
+        # here, never later
         self.device = resolve_device(device)
+        self.devices = placement_devices(device)
         if int(max_shards) < 1:
             raise ValueError(f"max_shards must be >= 1, got {max_shards}")
         # Spill-tier hierarchy: when configured, every per-query spill sink
@@ -211,8 +215,9 @@ class Executor:
                                                  tiers=tiers)
         if selector is not None and force is not None:
             self.selector.force = force
-        # the selector prices pending uploads against this device's cache
+        # the selector prices pending uploads against these devices' caches
         self.selector.device = self.device
+        self.selector.devices = self.devices
         if selector is not None and tiers is not None \
                 and getattr(selector, "tiers", None) is None:
             selector.tiers = tiers
@@ -787,7 +792,8 @@ class Executor:
                                       decision_reason=decision.reason,
                                       broker=self.broker,
                                       shards=decision.shards,
-                                      guard=frag_guard, device=self.device)
+                                      guard=frag_guard, device=self.device,
+                                      devices=self.devices)
             except TransientError:
                 # an injected/real infrastructure fault is NOT a fallback
                 # case: it must reach the retry loop (and the device-failure

@@ -30,10 +30,13 @@ at every domain size.
 ``run_fused(shards=N)`` runs an eligible aggregate fragment
 partition-parallel (:func:`sharded_supported`): both sides are
 co-partitioned by a hash of the join key on the host
-(:mod:`repro_torch.core.partition`), and one batched program joins every
-partition's pre-sorted build run at once over ``(N, bucket)`` tensors on the
-one device, where the reference runs one partition per mesh device under
-``shard_map``; the broker's gang lease holds one logical lane per partition.
+(:mod:`repro_torch.core.partition`), the partitions are placed on the
+devices in contiguous blocks (every visible card for ``device="cuda"``;
+:func:`~repro_torch.distributed.sharding.partition_placement`), and each
+device joins its block's pre-sorted build runs at once over ``(block,
+bucket)`` tensors, where the reference runs one partition per mesh device
+under ``shard_map``; the blocks' partials are combined on the first device.
+The broker's gang lease holds one logical lane per partition.
 """
 from __future__ import annotations
 
@@ -45,10 +48,10 @@ import numpy as np
 import torch
 
 from ..device import resolve_device, to_host
-from ..distributed.sharding import available_partitions
+from ..distributed.sharding import available_partitions, partition_placement
 from .codec_device import decode_device, dict_bucket, take
 from .metrics import OpMetrics, SpillAccount, Timer
-from .partition import get_partitioned_columns, partition_bucket
+from .partition import get_placed_columns, partition_bucket
 from .relation import Relation, column_token
 from .table_cache import get_device_layouts, key_stats
 from .tensor_engine import (_lex_perm, _order_key, capacity_bucket,
@@ -722,24 +725,24 @@ def sharded_supported(spec: FusedSpec, build: Relation,
 _UNSIGNED = (torch.uint8, torch.uint16, torch.uint32, torch.uint64)
 
 
-def _partition_scalar(fn: str, c: torch.Tensor,
-                      valid: torch.Tensor) -> torch.Tensor:
-    """One reduction over every partition's rows that gives the bits of the
-    reference's per-partition aggregates combined by psum/pmin/pmax.
+def _partial_scalar(fn: str, c: torch.Tensor,
+                    valid: torch.Tensor) -> torch.Tensor:
+    """One reduction over a block of partitions' rows, in a form whose
+    sum, min or max over the blocks (:data:`_COMBINE`), finished by
+    :func:`_finish_scalar`, gives the bits of the reference's
+    per-partition aggregates combined by psum/pmin/pmax.
 
     Integer sums run in int64, which is the reference's accumulator (its
     ``sum`` of a narrower integer widens to int64, of an unsigned one to
     uint64): addition modulo 2^64 is associative, so one sum equals the
-    sum of the partials, and an unsigned sum comes back as a uint64 view
-    of the same bits.  Integer min/max run on :func:`_order_key`'s signed
-    key of the same order (CUDA has no ``where`` or comparison for
-    uint16/32/64); floats and bool reduce as the single-device program
-    does."""
+    sum of the partials in any grouping.  Integer min/max run on
+    :func:`_order_key`'s signed key of the same order (CUDA has no
+    ``where`` or comparison for uint16/32/64); floats and bool reduce as
+    the single-device program does."""
     if fn == "sum":
         wide = (c.view(torch.int64) if c.dtype == torch.uint64
                 else _order_key(c).to(torch.int64))
-        out = torch.where(valid, wide, 0).sum()
-        return out.view(torch.uint64) if c.dtype in _UNSIGNED else out
+        return torch.where(valid, wide, 0).sum()
     if c.dtype.is_floating_point or c.dtype == torch.bool:
         fill = _fill_max(c.dtype) if fn == "min" else _fill_min(c.dtype)
         masked = torch.where(valid, c, fill)
@@ -747,50 +750,71 @@ def _partition_scalar(fn: str, c: torch.Tensor,
     key = _order_key(c)
     info = torch.iinfo(key.dtype)
     if fn == "min":
-        out = torch.where(valid, key, info.max).min()
-    elif fn == "max":
-        out = torch.where(valid, key, info.min).max()
-    else:
-        raise ValueError(fn)
-    if c.dtype == torch.uint64:
-        out = (out ^ torch.iinfo(torch.int64).min).view(torch.uint64)
+        return torch.where(valid, key, info.max).min()
+    if fn == "max":
+        return torch.where(valid, key, info.min).max()
+    raise ValueError(fn)
+
+
+def _finish_scalar(fn: str, dtype: torch.dtype,
+                   out: torch.Tensor) -> torch.Tensor:
+    """The combined partial as the reference's result: an unsigned sum as
+    a uint64 view of its bits, a uint64 min/max key mapped back."""
+    if fn == "sum" and dtype in _UNSIGNED:
+        return out.view(torch.uint64)
+    if fn != "sum" and dtype == torch.uint64:
+        return (out ^ torch.iinfo(torch.int64).min).view(torch.uint64)
     return out
 
 
-def _build_sharded_program(spec: FusedSpec, key: str, num_parts: int,
+#: how the blocks' partials meet: the reference's psum, pmin, pmax
+_COMBINE = {"sum": torch.sum, "count": torch.sum, "min": torch.amin,
+            "max": torch.amax}
+
+
+def _build_sharded_program(spec: FusedSpec, key: str, placement,
                            capacity: int, bsig: Tuple = (),
                            psig: Tuple = ()):
-    """Program closure for one sharded (fragment, partitions, capacity)
-    cache entry: the reference's per-shard fragment body, run for all
-    ``num_parts`` partitions at once over ``(num_parts, bucket)`` tensors,
-    with its device-side combines, so the host still fetches ONE result
-    per query.
+    """Program closure for one sharded (fragment, placement, capacity)
+    cache entry: the reference's per-shard fragment body, run for every
+    block of the placement over its ``(block, bucket)`` tensors on its
+    device, with the reference's combines, so the host still fetches ONE
+    result per query.
+
+    Every device's work is launched before anything waits.  Each block's
+    partials (the match total, the largest partition's match count, the
+    scalar's partial and the aggregated row count) are copied to the first
+    device and combined there in partition order; a copy between devices
+    is ordered after the current streams of both (``Tensor.to``), which
+    are the streams the blocks ran on.  With one block nothing is copied
+    or combined.
 
     ``max_part_total`` (the largest single partition's match count) rides
     the fetch next to the summed total so the run loop can verify its
     optimistic per-partition capacity without a second sync.
 
     The join runs per partition row (:func:`_join_sorted_run`); the
-    gathers run on the flattened partitions, each row's positions offset
-    by ``p * bucket``, so the column view, the filter mask and the
-    dictionary/FOR decoders work on 1-D columns as in the single-device
-    program.  Payload columns arrive as packed codes (``bsig``/``psig``
-    carry the layout signatures); dictionaries serve every partition.  The
-    join key stays logical int64 (the sentinel-padding contract).
+    gathers run on the block's flattened partitions, each row's positions
+    offset by ``p * bucket`` within the block, so the column view, the
+    filter mask and the dictionary/FOR decoders work on 1-D columns as in
+    the single-device program.  Payload columns arrive as packed codes
+    (``bsig``/``psig`` carry the layout signatures); each device's
+    dictionaries serve its partitions.  The join key stays logical int64
+    (the sentinel-padding contract).
     """
     col_name, fn = spec.agg
+    first = placement.devices[0]
 
-    def program(bcols, pcols, bdicts, pdicts, brefs, prefs,
-                n_build, n_probe):
+    def block(bcols, pcols, bdicts, pdicts, brefs, prefs, n_probe):
         bdec = _decoders(bsig, bdicts, brefs)
         pdec = _decoders(psig, pdicts, prefs)
-        del n_build  # build padding is sentinel-keyed; no live-row mask
         sk = bcols[key].to(torch.int64)
         pk = pcols[key].to(torch.int64)
         dev = pk.device
+        parts = sk.shape[0]
         build_idx, probe_idx, valid, total = _join_sorted_run(
             sk, pk, n_probe, capacity)
-        part = torch.arange(num_parts, device=dev)[:, None]
+        part = torch.arange(parts, device=dev)[:, None]
         view = _JoinView({k: v.reshape(-1) for k, v in bcols.items()},
                          {k: v.reshape(-1) for k, v in pcols.items()}, key,
                          (build_idx + part * sk.shape[1]).reshape(-1),
@@ -799,15 +823,34 @@ def _build_sharded_program(spec: FusedSpec, key: str, num_parts: int,
         valid = valid.reshape(-1)
         if spec.filter_fn is not None:
             valid = valid & device_mask(spec.filter_fn, view,
-                                        num_parts * capacity, dev)
+                                        parts * capacity, dev)
         # sort stage intentionally skipped: the supported aggregates are
         # order-independent (see sharded_supported)
         if fn == "count":
             scalar = valid.sum()
+            dtype = scalar.dtype
         else:
-            scalar = _partition_scalar(fn, view[col_name], valid)
-        return {"total": total.sum(), "max_part_total": total.max(),
-                "scalar": scalar, "agg_n": valid.sum()}
+            c = view[col_name]
+            scalar, dtype = _partial_scalar(fn, c, valid), c.dtype
+        counts = torch.stack([total.sum(), total.max(), valid.sum()])
+        return counts, scalar, dtype
+
+    def program(bblocks, pblocks, brefs, prefs):
+        outs = [block(bcols, pcols, bdicts, pdicts, brefs, prefs, n_probe)
+                for (bcols, _, bdicts), (pcols, n_probe, pdicts)
+                in zip(bblocks, pblocks)]
+        dtype = outs[0][2]
+        if len(outs) == 1:
+            counts, scalar = outs[0][:2]
+        else:
+            per = torch.stack([o[0].to(first) for o in outs])
+            counts = torch.stack([per[:, 0].sum(), per[:, 1].max(),
+                                  per[:, 2].sum()])
+            scalar = _COMBINE[fn](torch.stack([o[1].to(first)
+                                               for o in outs]))
+        return {"total": counts[0], "max_part_total": counts[1],
+                "scalar": _finish_scalar(fn, dtype, scalar),
+                "agg_n": counts[2]}
 
     return program
 
@@ -862,7 +905,8 @@ def _host_plan(build: Relation, probe: Relation, key: str):
 def run_fused(spec: FusedSpec, build: Relation, probe: Relation,
               decision_reason: str = "", broker=None,
               shards: Optional[int] = None,
-              guard=None, device=None) -> Tuple[object, OpMetrics]:
+              guard=None, device=None,
+              devices=None) -> Tuple[object, OpMetrics]:
     """Execute a fused fragment; returns (Relation | float, OpMetrics).
 
     Happy path: one program launch sequence + one batched device→host fetch.
@@ -875,10 +919,11 @@ def run_fused(spec: FusedSpec, build: Relation, probe: Relation,
     fetch has returned.
 
     ``shards=N`` (N >= 2) requests partition-parallel execution over N
-    logical lanes of the device: hash co-partition both sides by the join
-    key, run the fragment for every partition in one batched program, and
-    combine per-partition aggregates on device — still ≤ 1 device→host
-    sync.  The request silently degrades to the single-device program when
+    logical lanes: hash co-partition both sides by the join key, place the
+    partitions on the devices in contiguous blocks, run the fragment for
+    every block of partitions in one batched program on its device, and
+    combine the blocks' aggregates on the first device — still ≤ 1
+    device→host sync.  The request silently degrades to the single-device program when
     the fragment is not :func:`sharded_supported` (metrics then report
     ``devices=1``); dispatch holds a gang lease over one broker lane per
     partition.
@@ -888,7 +933,12 @@ def run_fused(spec: FusedSpec, build: Relation, probe: Relation,
     is fed to ``guard.observe_fragment`` before the retry, which may raise
     :class:`~repro_torch.core.guards.SwitchPoint` to abandon the retry loop.
 
-    ``device`` is the CUDA device unless the caller names another.
+    ``device`` is the CUDA device unless the caller names another.  A
+    sharded fragment spreads over ``devices`` (by default
+    :func:`~repro_torch.distributed.sharding.placement_devices` of
+    ``device``: every visible card for ``"cuda"``, the device alone when it
+    is named, the devices of a tuple in order); everything else runs on
+    ``device`` (a tuple's first).
     """
     dev = resolve_device(device)
     if broker is None:
@@ -897,8 +947,10 @@ def run_fused(spec: FusedSpec, build: Relation, probe: Relation,
     if shards is not None and int(shards) > 1:
         num_parts = min(int(shards), available_partitions())
         if num_parts > 1 and sharded_supported(spec, build, probe):
-            return _run_fused_sharded(spec, build, probe, num_parts,
-                                      decision_reason, broker, dev)
+            placement = partition_placement(
+                num_parts, device if devices is None else devices)
+            return _run_fused_sharded(spec, build, probe, placement,
+                                      decision_reason, broker)
     n_build, n_probe = len(build), len(probe)
     b_bucket = capacity_bucket(n_build)
     p_bucket = capacity_bucket(n_probe)
@@ -1026,10 +1078,11 @@ _CAP_HINTS_CAP = 512
 
 
 def _run_fused_sharded(spec: FusedSpec, build: Relation, probe: Relation,
-                       num_parts: int, decision_reason: str, broker,
-                       dev: torch.device) -> Tuple[float, OpMetrics]:
-    """Partition-parallel run loop: cached partitioned layouts in, ONE gang
-    dispatch over ``num_parts`` broker lanes, ONE batched fetch out.
+                       placement, decision_reason: str,
+                       broker) -> Tuple[float, OpMetrics]:
+    """Partition-parallel run loop: cached partitioned layouts in (each
+    device's block on it), ONE gang dispatch over ``num_parts`` broker
+    lanes, ONE batched fetch out (from the placement's first device).
 
     The per-partition capacity is optimistic — the critical partition's
     probe fill times the sampled duplication factor, with skew slack — and
@@ -1039,6 +1092,7 @@ def _run_fused_sharded(spec: FusedSpec, build: Relation, probe: Relation,
     and dense retries).
     """
     n_build, n_probe = len(build), len(probe)
+    num_parts = placement.num_parts
     syncs = 0
     queue_wait = 0.0
     any_fresh = False
@@ -1046,12 +1100,10 @@ def _run_fused_sharded(spec: FusedSpec, build: Relation, probe: Relation,
     broker.ensure_lanes(num_parts)
     with Timer() as t:
         stats = key_stats(build, spec.join_key)
-        (bcols, counts_b_dev, counts_b, bucket_b, up_b, log_b, b_lay,
-         bdicts) = get_partitioned_columns(build, spec.join_key, num_parts,
-                                           sort_within=True, device=dev)
-        (pcols, counts_p_dev, counts_p, bucket_p, up_p, log_p, p_lay,
-         pdicts) = get_partitioned_columns(probe, spec.join_key, num_parts,
-                                           sort_within=False, device=dev)
+        (bblocks, counts_b, bucket_b, up_b, log_b,
+         b_lay) = get_placed_columns(build, spec.join_key, True, placement)
+        (pblocks, counts_p, bucket_p, up_p, log_p,
+         p_lay) = get_placed_columns(probe, spec.join_key, False, placement)
         brefs = {k: lay.ref for k, lay in b_lay.items()
                  if lay.encoding == "for"}
         prefs = {k: lay.ref for k, lay in p_lay.items()
@@ -1072,11 +1124,12 @@ def _run_fused_sharded(spec: FusedSpec, build: Relation, probe: Relation,
             capacity = max(capacity, _CAP_HINTS.get(hint_key, 0))
         while True:
             cache_key = ("sharded", spec.cache_signature(), num_parts,
-                         capacity, bucket_b, bucket_p, bsig, psig, dev.type)
+                         capacity, bucket_b, bucket_p, bsig, psig,
+                         placement.key)
             prog, fresh = _CACHE.get(
                 cache_key,
                 lambda: _build_sharded_program(spec, spec.join_key,
-                                               num_parts, capacity,
+                                               placement, capacity,
                                                bsig, psig))
             any_fresh = any_fresh or fresh
             # ALWAYS under the gang lease, a fresh program's first call
@@ -1085,8 +1138,7 @@ def _run_fused_sharded(spec: FusedSpec, build: Relation, probe: Relation,
             lease = broker.device_lease(lanes=num_parts)
             queue_wait += lease.wait_s
             try:
-                out = prog(bcols, pcols, bdicts, pdicts, brefs, prefs,
-                           counts_b_dev, counts_p_dev)
+                out = prog(bblocks, pblocks, brefs, prefs)
                 fetched = _fetch(out)  # THE host sync of the query
             finally:
                 lease.release()

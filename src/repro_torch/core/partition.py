@@ -1,11 +1,12 @@
 """Radix partitioning for sharded fused fragments (host-side, cached).
 
 The sharded tensor path splits a fused Join→[Filter]→[Agg] fragment into
-``num_parts`` co-partitions by a multiplicative hash of the join key and
-runs every partition at once on one device, one logical lane each
-(:mod:`repro_torch.distributed.sharding`): each partitioned column is one
-``(num_parts, bucket)`` tensor whose row ``p`` holds partition ``p``.  This
-module owns the host side of that contract:
+``num_parts`` co-partitions by a multiplicative hash of the join key, one
+logical lane each, and places them on the devices in contiguous blocks
+(:func:`repro_torch.distributed.sharding.partition_placement`): each
+device holds its block of every partitioned column as one ``(block,
+bucket)`` tensor whose row ``p`` holds the block's ``p``-th partition.
+This module owns the host side of that contract:
 
   * **Partitioning contract** — row ``i`` lands in partition
     ``hash64(key[i]) >> (64 - log2 P)`` (Fibonacci multiplicative hash,
@@ -20,7 +21,7 @@ module owns the host side of that contract:
     (:mod:`repro_torch.core.table_cache`), whose caching discipline this
     module mirrors: entries live **on the Relation instance** (dropped with
     the table, shared with ``select()`` sub-relations), are keyed by
-    sampled content tokens and the device, and bookkeeping is serialized by
+    sampled content tokens and the placement, and bookkeeping is serialized by
     one module lock while partitioning and transfers run outside it.
   * **Skew-aware sizing** — per-partition buckets are quarter-power-of-two
     (bounded shape count for the program cache, ≤25% padding waste even
@@ -41,9 +42,10 @@ value domain — but payload columns store *packed codes* per their cached
 :func:`~repro_torch.core.table_cache.column_layout` (dictionary /
 frame-of-reference; :mod:`repro_torch.core.codec_device`), so warm sharded
 queries keep packed bytes resident and cold ones upload packed bytes.
-Dictionaries ride next to the partitioned columns (one copy serves every
-partition) and the sharded program decodes at gather, same as the
-single-device fused path.
+Dictionaries ride next to the partitioned columns (one copy on each
+device serves its partitions: uploaded once, copied from the first device
+to the others, as the reference replicates them) and the sharded program
+decodes at gather, same as the single-device fused path.
 
 The host pass is the reference's, step for step, so every partitioned
 column equals the reference's element by element.
@@ -57,10 +59,10 @@ import numpy as np
 import torch
 
 from ..device import upload
+from ..distributed.sharding import PartitionPlacement
 from .codec_device import (DeviceColumnLayout, compress_enabled, dict_bucket,
                            encode_host, pad_dictionary)
 from .relation import Relation, column_token
-from .table_cache import _dev_key
 
 __all__ = [
     "PART_MIN_BUCKET",
@@ -69,7 +71,9 @@ __all__ = [
     "partition_counts",
     "partition_skew",
     "get_partitioned_columns",
+    "get_placed_columns",
     "pending_partition_bytes",
+    "resident_partition_bytes",
     "partition_cache_info",
     "partition_cache_clear",
 ]
@@ -219,51 +223,66 @@ def _build_partitions(rel: Relation, key: str, num_parts: int,
     return host_cols, counts, bucket, layouts, dicts_host
 
 
-def _upload(host_cols, counts, dicts_host, device: torch.device):
-    """Host→device placement of a partitioned layout: each ``(P, bucket)``
-    column becomes one tensor on ``device`` whose row ``p`` is partition
-    ``p``, so the sharded program consumes it with no per-call reshaping.
-    Dictionaries are small and serve every partition."""
-    cols = {name: upload(buf, device) for name, buf in host_cols.items()}
-    counts_dev = upload(counts, device)
-    dicts_dev = {name: upload(d, device) for name, d in dicts_host.items()}
-    return cols, counts_dev, dicts_dev
+def _upload(host_cols, counts, dicts_host, placement: PartitionPlacement):
+    """Host→device placement of a partitioned layout: each device gets its
+    block of rows of every ``(P, bucket)`` column as one tensor, so the
+    sharded program consumes it with no per-call reshaping.  Dictionaries
+    cross from the host once, to the first device, and are copied from
+    there to every other device that decodes (the reference replicates
+    them; the host-to-device bytes stay its own).  Returns one ``(cols,
+    counts_dev, dicts_dev)`` per group."""
+    first = placement.devices[0]
+    dicts_first = {name: upload(d, first) for name, d in dicts_host.items()}
+    copies = {first: dicts_first}
+    blocks = []
+    for dev, lo, hi in placement.groups:
+        if dev not in copies:
+            copies[dev] = {name: d.to(dev) for name, d in dicts_first.items()}
+        blocks.append(({name: upload(buf[lo:hi], dev)
+                        for name, buf in host_cols.items()},
+                       upload(counts[lo:hi], dev), copies[dev]))
+    return tuple(blocks)
 
 
-def get_partitioned_columns(rel: Relation, key: str, num_parts: int,
-                            sort_within: bool, device="cuda"):
-    """Partitioned device columns for ``rel``, cached on the instance.
+def _single(device, num_parts: int) -> PartitionPlacement:
+    """Every partition on one device, or a placement as it was given."""
+    if isinstance(device, PartitionPlacement):
+        return device
+    return PartitionPlacement((torch.device(device),), (0, int(num_parts)))
 
-    Returns ``(cols, counts_dev, counts, bucket, uploaded_bytes,
-    logical_bytes, layouts, dicts)``: ``cols`` maps column name →
-    ``(num_parts, bucket)`` tensor on ``device`` (packed codes for
-    compressed payloads), ``counts_dev`` the per-partition row counts as a
-    ``(num_parts,)`` tensor on ``device``, ``counts`` the same on host,
-    ``uploaded_bytes`` the physical H2D
-    traffic this call actually paid (0 on a warm hit — the serving-path
-    contract) and ``logical_bytes`` the same transfer priced at logical
-    column width.  ``layouts`` maps name → :class:`~repro_torch.core.
-    codec_device.DeviceColumnLayout`; ``dicts`` maps ``dict``-encoded
-    payload names to their device dictionaries.  Entries are keyed by the
-    device too, so a CPU and a CUDA layout of one table coexist."""
-    num_parts = int(num_parts)
-    if num_parts < 1:
-        raise ValueError(f"num_parts must be >= 1, got {num_parts}")
-    device = torch.device(device)
+
+def get_placed_columns(rel: Relation, key: str, sort_within: bool,
+                       placement: PartitionPlacement):
+    """Partitioned device columns for ``rel`` over ``placement``, cached on
+    the instance.
+
+    Returns ``(blocks, counts, bucket, uploaded_bytes, logical_bytes,
+    layouts)``: ``blocks`` holds one ``(cols, counts_dev, dicts)`` per
+    group of the placement, on its device: ``cols`` maps column name →
+    ``(block, bucket)`` tensor (packed codes for compressed payloads),
+    ``counts_dev`` the block's per-partition row counts, ``dicts`` maps
+    ``dict``-encoded payload names to their dictionaries.  ``counts`` are
+    every partition's row counts on the host, ``uploaded_bytes`` the
+    physical H2D traffic this call actually paid, summed over the devices
+    (0 on a warm hit — the serving-path contract), and ``logical_bytes``
+    the same transfer priced at logical column width.  ``layouts`` maps
+    name → :class:`~repro_torch.core.codec_device.DeviceColumnLayout`.
+    Entries are keyed by the placement, so layouts of one table over
+    other devices, or over the same devices in other blocks, coexist."""
+    num_parts = placement.num_parts
     tokens = tuple((name, column_token(rel[name])) for name in rel.names)
-    cache_key = (key, num_parts, bool(sort_within), _dev_key(device))
+    cache_key = (key, num_parts, bool(sort_within), placement.key)
     with _LOCK:
         cache = rel.__dict__.setdefault(_CACHE_ATTR, {})
         entry = cache.get(cache_key)
         if entry is not None and entry["tokens"] == tokens:
             _COUNTERS.hits += 1
-            return (entry["cols"], entry["counts_dev"], entry["counts"],
-                    entry["bucket"], 0, 0, entry["layouts"], entry["dicts"])
+            return (entry["blocks"], entry["counts"], entry["bucket"], 0, 0,
+                    entry["layouts"])
         _COUNTERS.misses += 1
     host_cols, counts, bucket, layouts, dicts_host = _build_partitions(
         rel, key, num_parts, sort_within)
-    cols, counts_dev, dicts_dev = _upload(host_cols, counts, dicts_host,
-                                          device)
+    blocks = _upload(host_cols, counts, dicts_host, placement)
     uploaded = sum(int(b.nbytes) for b in host_cols.values()) + counts.nbytes
     uploaded += sum(int(d.nbytes) for d in dicts_host.values())
     logical = int(num_parts * bucket
@@ -275,33 +294,74 @@ def get_partitioned_columns(rel: Relation, key: str, num_parts: int,
         if current is not None and current["tokens"] == tokens:
             # racing pair: keep the first insert, both transfers were real
             _COUNTERS.h2d_bytes += uploaded
-            return (current["cols"], current["counts_dev"],
-                    current["counts"], current["bucket"], uploaded, logical,
-                    current["layouts"], current["dicts"])
-        cache[cache_key] = {"tokens": tokens, "cols": cols,
-                            "counts_dev": counts_dev, "counts": counts,
-                            "bucket": bucket, "layouts": layouts,
-                            "dicts": dicts_dev}
+            return (current["blocks"], current["counts"], current["bucket"],
+                    uploaded, logical, current["layouts"])
+        cache[cache_key] = {"tokens": tokens, "blocks": blocks,
+                            "counts": counts, "bucket": bucket,
+                            "layouts": layouts}
         _COUNTERS.h2d_bytes += uploaded
+    return blocks, counts, bucket, uploaded, logical, layouts
+
+
+def get_partitioned_columns(rel: Relation, key: str, num_parts: int,
+                            sort_within: bool, device="cuda"):
+    """Every partition of ``rel`` on one ``device``, through
+    :func:`get_placed_columns` (the same cache entry as a one-group
+    placement there).
+
+    Returns ``(cols, counts_dev, counts, bucket, uploaded_bytes,
+    logical_bytes, layouts, dicts)``: ``cols`` maps column name →
+    ``(num_parts, bucket)`` tensor on ``device``, ``counts_dev`` the
+    per-partition row counts as a ``(num_parts,)`` tensor on ``device``,
+    ``dicts`` the ``dict``-encoded payloads' device dictionaries; the rest
+    as :func:`get_placed_columns` returns them."""
+    num_parts = int(num_parts)
+    if num_parts < 1:
+        raise ValueError(f"num_parts must be >= 1, got {num_parts}")
+    (blocks, counts, bucket, uploaded, logical,
+     layouts) = get_placed_columns(rel, key, sort_within,
+                                   _single(device, num_parts))
+    (cols, counts_dev, dicts), = blocks
     return (cols, counts_dev, counts, bucket, uploaded, logical, layouts,
-            dicts_dev)
+            dicts)
+
+
+def resident_partition_bytes(rel: Relation) -> Dict[str, int]:
+    """Bytes of ``rel``'s cached partitioned layouts on each device, by
+    device name: columns, counts and dictionaries, each tensor once."""
+    out: Dict[str, int] = {}
+    seen = set()
+    with _LOCK:
+        entries = [v for v in rel.__dict__.get(_CACHE_ATTR, {}).values()
+                   if isinstance(v, dict)]
+    for entry in entries:
+        for cols, counts_dev, dicts in entry["blocks"]:
+            for t in (*cols.values(), counts_dev, *dicts.values()):
+                if id(t) not in seen:
+                    seen.add(id(t))
+                    name = str(t.device)
+                    out[name] = out.get(name, 0) + t.numel() * t.element_size()
+    return out
 
 
 def pending_partition_bytes(rel: Relation, key: str, num_parts: int,
                             sort_within: bool, device="cuda") -> int:
-    """H2D bytes :func:`get_partitioned_columns` would transfer right now —
-    0 when the partitioned layout is already resident on ``device`` (the
-    selector's cache-aware cost term, mirroring ``pending_upload_bytes``).
-    With compression on this prices the PACKED layout (narrow payload
-    codes + dictionaries), so the selector sees the sharded candidate's
-    true, cheaper transfer."""
+    """H2D bytes :func:`get_placed_columns` would transfer right now,
+    summed over the devices of ``device`` (a
+    :class:`~repro_torch.distributed.sharding.PartitionPlacement`, or one
+    device that holds every partition) — 0 when the partitioned layout is
+    already resident there (the selector's cache-aware cost term,
+    mirroring ``pending_upload_bytes``).  With compression on this prices
+    the PACKED layout (narrow payload codes + dictionaries, uploaded once),
+    so the selector sees the sharded candidate's true, cheaper transfer."""
     num_parts = int(num_parts)
+    placement = _single(device, num_parts)
     tokens = tuple((name, column_token(rel[name])) for name in rel.names)
     with _LOCK:
         cache = rel.__dict__.get(_CACHE_ATTR)
         if cache is not None:
             entry = cache.get((key, num_parts, bool(sort_within),
-                               _dev_key(device)))
+                               placement.key))
             if entry is not None and entry["tokens"] == tokens:
                 return 0
     counts = partition_counts(rel, key, num_parts)

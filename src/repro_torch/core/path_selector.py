@@ -92,9 +92,11 @@ class PathSelector:
                  profile: Optional[RuntimeProfile] = None,
                  tiers=None, device="cuda"):
         self.work_mem = int(work_mem)
-        # whose device cache pending uploads are priced against; the
-        # executor that owns this selector sets it to its own device
+        # whose device cache pending uploads are priced against, and the
+        # devices of a sharded fragment's placement (None: those of
+        # ``device``); the executor that owns this selector sets both
         self.device = device
+        self.devices = None
         self.model = cost_model or CostModel()
         if force not in (None, "linear", "tensor"):
             raise ValueError(force)
@@ -321,7 +323,8 @@ class PathSelector:
             return 1, 1.0, 0
         if not (isinstance(build, Relation) and isinstance(probe, Relation)):
             return 1, 1.0, 0
-        from ..distributed.sharding import available_partitions
+        from ..distributed.sharding import (available_partitions,
+                                            partition_placement)
         from .fused import sharded_supported
         from .partition import (partition_counts, partition_skew,
                                 pending_partition_bytes)
@@ -331,10 +334,11 @@ class PathSelector:
             return 1, 1.0, 0
         key = spec.join_key
         skew = partition_skew(partition_counts(build, key, shards))
-        pend = (pending_partition_bytes(build, key, shards, True,
-                                        self.device)
+        placement = partition_placement(
+            shards, self.device if self.devices is None else self.devices)
+        pend = (pending_partition_bytes(build, key, shards, True, placement)
                 + pending_partition_bytes(probe, key, shards, False,
-                                          self.device))
+                                          placement))
         return shards, skew, pend
 
     def choose_fragment(self, spec, build: Relation, probe: Relation,

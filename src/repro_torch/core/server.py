@@ -5,8 +5,10 @@ its :class:`~repro_torch.core.session.Session`: tensor-path work runs on
 the CUDA card unless the caller passes ``device="cpu"``, and without a card
 the constructor raises.  Every worker thread launches on its thread's
 current (default) stream.  ``max_shards > 1`` serves sharded fragments over
-that many logical lanes of the one device (at most
-:func:`~repro_torch.distributed.sharding.available_partitions`).
+that many logical lanes (at most
+:func:`~repro_torch.distributed.sharding.available_partitions`), their
+partitions placed on the session's devices (every visible card for
+``device="cuda"``).
 
 This is the repo's traffic model for the paper's headline claim.  Single-query
 benchmarks (fig1–fig10) measure *throughput* per path; the phase transition

@@ -69,7 +69,10 @@ class Session:
 
     Tensor-path work runs on ``device``: the CUDA card unless the caller
     asks for the CPU (``device="cpu"``).  Without a card and without
-    ``device="cpu"`` the constructor raises.
+    ``device="cpu"`` the constructor raises.  A sharded fragment
+    (``max_shards > 1``) places its partitions on every visible card for
+    ``device="cuda"``, on the one device otherwise, or on the devices of a
+    tuple (its first is ``device`` for everything else).
     """
 
     def __init__(self, work_mem: int = 64 * MB, policy: str = "auto",

@@ -90,10 +90,17 @@ def reset_launch_counts() -> None:
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
-    """The engine's device: CUDA unless the caller names another.
+    """The engine's device: CUDA unless the caller names another.  A tuple
+    of devices (where a sharded fragment's partitions go,
+    :func:`repro_torch.distributed.sharding.placement_devices`) names the
+    engine's device first.
 
     Raises when CUDA is asked for (explicitly or by default) and
     ``torch.cuda.is_available()`` is false."""
+    if isinstance(device, (tuple, list)):
+        if not device:
+            raise ValueError("an empty tuple names no device")
+        device = device[0]
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

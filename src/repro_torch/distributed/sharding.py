@@ -1,15 +1,19 @@
 """Sharding rules: partition lanes and the LM's parameter, batch and cache
 specs.  The counterpart of ``src/repro/distributed/sharding.py``.
 
-**Partition lanes.**  The reference runs a sharded fragment under
-``shard_map`` over a 1-D mesh of ``num_parts`` devices (axis ``"part"``),
-one hash partition per device; its tests and figures force eight
-host-platform devices on one CPU.  The port runs the same contract on one
-card: the ``num_parts`` co-partitions are the rows of ``(num_parts,
-bucket)`` tensors and one batched sequence of device ops serves them all,
-while the broker's gang lease holds one logical lane per partition.  No
-mesh object exists, so the lane count is a constant, the reference's forced
-mesh width, and not the number of cards.
+**Partition lanes and their placement.**  The reference runs a sharded
+fragment under ``shard_map`` over a 1-D mesh of the first ``num_parts``
+devices (axis ``"part"``, :func:`relational_mesh`), one hash partition per
+device; its tests and figures force eight host-platform devices on one
+CPU.  The port keeps the reference's lanes (a constant, the reference's
+forced mesh width: the broker's gang lease holds one logical lane per
+partition) and places the partitions on the devices present in contiguous
+blocks (:func:`partition_placement`): each device runs its block as the
+rows of ``(block, bucket)`` tensors in one batched sequence of ops, and the
+blocks' partials meet on the first device.  ``device="cuda"`` spreads over
+every visible card (the reference takes ``jax.devices()``), a named card
+or the CPU holds every partition, and a tuple of devices names the blocks'
+devices outright (the CPU tests' analogue of the forced host devices).
 
 **LM specs.**  2-D sharding on the ``("data", "model")`` mesh axes, with
 the reference's rules: ``"model"`` carries tensor and expert parallelism
@@ -33,10 +37,13 @@ import math
 import sys
 from typing import Any, Dict, Mapping, Tuple, Union
 
+import torch
+
 from ..train.tree import tree_paths, tree_unflatten
 
 __all__ = [
     "PART_AXIS", "LOGICAL_LANES", "available_partitions", "check_partitions",
+    "PartitionPlacement", "placement_devices", "partition_placement",
     "DATA_AXIS", "MODEL_AXIS", "POD_AXIS", "PartitionSpec", "NamedSharding",
     "dp_axes", "dp_size", "dp_split", "mesh_axis_sizes", "param_specs", "batch_specs",
     "cache_specs", "spec_placements", "axis_placements", "tree_shardings",
@@ -46,7 +53,7 @@ __all__ = [
 #: the name of the partition axis (dim 0 of every partitioned column)
 PART_AXIS = "part"
 
-#: logical lanes a sharded fragment can fan out over on one card
+#: logical lanes a sharded fragment can fan out over, whatever the cards
 LOGICAL_LANES = 8
 
 
@@ -66,6 +73,79 @@ def check_partitions(num_parts: int) -> int:
             f"num_parts={num_parts} exceeds the {available_partitions()} "
             f"logical partition lanes")
     return num_parts
+
+
+@dataclasses.dataclass(frozen=True)
+class PartitionPlacement:
+    """Where a fragment's ``num_parts`` partitions live: group ``g`` holds
+    partitions ``bounds[g]`` to ``bounds[g + 1] - 1`` on ``devices[g]``.
+    The port's counterpart of :func:`partition_sharding`'s mesh; its
+    :attr:`key` names it in the layout and program caches."""
+    devices: Tuple[torch.device, ...]
+    bounds: Tuple[int, ...]
+
+    @property
+    def num_parts(self) -> int:
+        return self.bounds[-1]
+
+    @property
+    def groups(self) -> Tuple[Tuple[torch.device, int, int], ...]:
+        """``(device, first partition, end)`` of each block, in order."""
+        return tuple(zip(self.devices, self.bounds[:-1], self.bounds[1:]))
+
+    @property
+    def key(self) -> Tuple[Tuple[str, int, int], ...]:
+        return tuple((str(d), lo, hi) for d, lo, hi in self.groups)
+
+
+def placement_devices(device=None) -> Tuple[torch.device, ...]:
+    """The devices a sharded fragment spreads over: every visible card for
+    ``"cuda"`` (or ``None``) without an index, the device alone for a named
+    card, the CPU or another device, each device of a tuple in order.  A
+    card that is not present raises; nothing falls back to fewer cards."""
+    from ..device import resolve_device
+
+    if isinstance(device, PartitionPlacement):
+        return device.devices
+    if isinstance(device, (tuple, list)):
+        devs = tuple(resolve_device(d) for d in device)
+    else:
+        dev = resolve_device(device)
+        if dev.type == "cuda" and dev.index is None:
+            devs = tuple(torch.device("cuda", i)
+                         for i in range(torch.cuda.device_count()))
+        else:
+            devs = (dev,)
+    if not devs:
+        raise ValueError("a placement needs at least one device")
+    for d in devs:
+        if d.type == "cuda" and not (d.index is None
+                                     or d.index < torch.cuda.device_count()):
+            raise RuntimeError(
+                f"{d} is not present: {torch.cuda.device_count()} cards "
+                f"are visible")
+    return devs
+
+
+def partition_placement(num_parts: int, device=None) -> PartitionPlacement:
+    """``num_parts`` partitions over :func:`placement_devices` of
+    ``device`` in contiguous blocks, the first ``num_parts % n`` of them
+    one partition longer (8 on 4 devices: 2 each; 3 on 2: {0, 1}, {2});
+    never more blocks than partitions.  A placement passes through."""
+    if isinstance(device, PartitionPlacement):
+        if device.num_parts != int(num_parts):
+            raise ValueError(f"a placement of {device.num_parts} partitions "
+                             f"asked for {num_parts}")
+        return device
+    num_parts = int(num_parts)
+    if num_parts < 1:
+        raise ValueError(f"num_parts must be >= 1, got {num_parts}")
+    devs = placement_devices(device)[:num_parts]
+    size, extra = divmod(num_parts, len(devs))
+    bounds = [0]
+    for g in range(len(devs)):
+        bounds.append(bounds[-1] + size + (g < extra))
+    return PartitionPlacement(devs, tuple(bounds))
 
 
 # ---------------------------------------------------------------------------

@@ -708,6 +708,58 @@ def test_sharded_fragment_on_card_matches_cpu(dev, agg):
     assert out["cuda"] == out["cpu"]
 
 
+@pytest.mark.parametrize("agg", [("b_i32", "sum"), ("b_u32", "sum"),
+                                 ("b_u64", "sum"), ("b_u64", "max"),
+                                 ("b_u16", "min"), ("b_f", "max"),
+                                 ("w", "count")])
+def test_sharded_placement_on_cards_matches_one_card(dev, agg):
+    """The sharded fragment's eight partitions in three blocks on card 0,
+    and, where there are 2 cards or more, on two cards and on every card
+    present, against all of them on card 0 in one block: the same float
+    and counters, one host sync, a warm run that uploads nothing, and each
+    card holding its block of the layout."""
+    from repro_torch.core import FusedSpec, Relation, col, run_fused
+    from repro_torch.core import partition as part
+    from repro_torch.distributed.sharding import partition_placement
+
+    cards = torch.cuda.device_count()
+    placements = ["cuda:0", ("cuda:0",) * 3]
+    if cards >= 2:
+        placements += [("cuda:0", "cuda:1"), "cuda"]
+    rng = np.random.default_rng(43)
+    n_b, n_p = 40_000, 60_000
+    build = {"k": rng.permutation(n_b).astype(np.int64) * 7919 + 3,
+             "i32": rng.integers(1 << 20, (1 << 31) - 1, n_b,
+                                 dtype=np.int64).astype(np.int32),
+             "u32": rng.integers(1 << 30, 1 << 32, n_b,
+                                 dtype=np.uint64).astype(np.uint32),
+             "u64": rng.integers(1 << 60, 1 << 62, n_b, dtype=np.uint64),
+             "u16": rng.integers(0, 1 << 16, n_b).astype(np.uint16),
+             "f": rng.normal(size=n_b)}
+    probe = {"k": build["k"][rng.integers(0, n_b, n_p)],
+             "w": rng.integers(-100, 100, n_p).astype(np.int64)}
+    spec = FusedSpec("k", col("w") < 50, (), agg)
+    out = {}
+    for device in placements:
+        b, p = Relation(dict(build)), Relation(dict(probe))
+        runs = [run_fused(spec, b, p, shards=8, device=device)
+                for _ in range(2)]
+        for _, m in runs:
+            assert m.devices == 8 and m.host_syncs == 1
+        assert runs[1][1].h2d_bytes == 0
+        placement = partition_placement(8, device)
+        blocks = part.get_placed_columns(b, "k", True, placement)[0]
+        assert [c["k"].device for c, _, _ in blocks] == list(
+            placement.devices)
+        resident = part.resident_partition_bytes(b)
+        assert all(resident.get(str(d), 0) > 0 for d in placement.devices)
+        out[str(device)] = [(r, m.h2d_bytes, m.h2d_bytes_logical,
+                             m.peak_working_set_bytes) for r, m in runs]
+    assert len(partition_placement(8, "cuda").devices) == min(cards, 8)
+    for device in placements:
+        assert out[str(device)] == out["cuda:0"], device
+
+
 def test_fused_sort_on_unsigned_keys_on_card_matches_cpu(dev):
     """uint32 and uint64 sort keys in the fused fragment: the card gives
     the CPU's rows (CUDA has no gather or ``where`` for these dtypes, so
