@@ -29,6 +29,7 @@ import torch
 
 from ..device import to_host, upload
 from .codec_device import take
+from .metrics import span
 from .relation import Relation
 
 __all__ = ["DeviceColumn", "DeviceRelation"]
@@ -199,7 +200,15 @@ class DeviceRelation:
         forced = [self.columns[k].force() for k in names]
         if self.valid is not None:
             *cols, valid = to_host(forced + [self.valid])
-            keep = np.nonzero(valid)[0]
-            return Relation({k: v[keep] for k, v in zip(names, cols)})
+            with span("finish") as s:
+                keep = np.nonzero(valid)[0]
+                rel = Relation({k: v[keep] for k, v in zip(names, cols)})
+                s.set("rows_out", len(rel))
+                del cols, valid   # the fetched buffer goes back to its pool
+            return rel
         cols = to_host(forced)
-        return Relation({k: np.array(v) for k, v in zip(names, cols)})
+        with span("finish") as s:
+            rel = Relation({k: np.array(v) for k, v in zip(names, cols)})
+            s.set("rows_out", len(rel))
+            del cols
+        return rel

@@ -43,7 +43,7 @@ from .faults import (DeviceDispatchError, FaultInjector, PreemptedError,
 from .guards import SwitchPoint
 from .linear_engine import hash_join_linear, sort_linear
 from .memory_governor import MemoryGovernor
-from .metrics import OpMetrics, SpillAccount, Timer
+from .metrics import OpMetrics, SpillAccount, Timer, span
 from .path_selector import Decision, PathSelector
 from .relation import Relation
 from .resource_broker import (PreemptToken, PressureQuote, ResourceBroker,
@@ -330,6 +330,22 @@ class Executor:
         dev = self.broker.price(ResourceRequest("device",
                                                 lanes=max(1, int(lanes))))
         return mem, dev, rsv
+
+    def _priced(self, need_bytes: int, choose):
+        """Price one operator's request and decide its path, under one
+        ``decide`` span: ``(decision, reservation)``.  ``choose(mem_quote,
+        dev_quote)`` is the selector's call; a decision that raises cancels
+        the reservation it was priced with."""
+        with span("decide") as d:
+            mem_q, dev_q, rsv = self._quotes(need_bytes)
+            try:
+                decision = self._decide(choose(mem_q, dev_q))
+            except BaseException:
+                if rsv is not None:
+                    rsv.cancel()
+                raise
+            d.set("path", decision.path)
+        return decision, rsv
 
     @contextlib.contextmanager
     def _granted(self, need_bytes: int, reservation=None):
@@ -754,21 +770,28 @@ class Executor:
     def _try_fused(self, plan, metrics, decisions) -> Optional[QueryResult]:
         from .fused import PredicateError, match_fragment, run_fused
 
-        frag = match_fragment(plan)
-        if frag is None:
-            return None
-        spec, build, probe = frag
-        # the fragment's dominant linear intermediate is the join hash
-        # table; quoting with it makes the pressure signal (grant size AND
-        # expected admission wait) the same answer the join's grant
-        # acquisition would get
-        mem_q, dev_q, rsv = self._quotes(
-            self.selector.model.hash_need_bytes(len(build)),
-            lanes=self.max_shards)
+        with span("decide") as d:
+            frag = match_fragment(plan)
+            if frag is None:
+                return None
+            spec, build, probe = frag
+            # the fragment's dominant linear intermediate is the join hash
+            # table; quoting with it makes the pressure signal (grant size
+            # AND expected admission wait) the same answer the join's grant
+            # acquisition would get
+            mem_q, dev_q, rsv = self._quotes(
+                self.selector.model.hash_need_bytes(len(build)),
+                lanes=self.max_shards)
+            try:
+                decision = self.selector.choose_fragment(
+                    spec, build, probe, mem_quote=mem_q, dev_quote=dev_q,
+                    max_shards=self.max_shards)
+            except BaseException:
+                if rsv is not None:
+                    rsv.cancel()
+                raise
+            d.set("path", decision.path)
         try:
-            decision = self.selector.choose_fragment(
-                spec, build, probe, mem_quote=mem_q, dev_quote=dev_q,
-                max_shards=self.max_shards)
             if decision.path != "tensor":
                 return None  # generic walk re-quotes (and re-reserves) itself
             decisions.append(decision)
@@ -872,8 +895,10 @@ class Executor:
             # one fetch brings the value and its supporting row count
             with self._device_leased(("agg_fetch", out.fn)) as lease:
                 with Timer() as t:
-                    val, n_valid = (float(x) for x in
-                                    to_host([out.value, out.n_valid]))
+                    fetched = to_host([out.value, out.n_valid])
+                    with span("finish") as fin:
+                        val, n_valid = (float(x) for x in fetched)
+                        fin.set("rows_out", 1)
             m = OpMetrics(
                 op="materialize", path="tensor", rows_in=1, rows_out=1,
                 wall_s=t.elapsed, spill=SpillAccount(), host_syncs=1)
@@ -954,8 +979,10 @@ class Executor:
         if isinstance(node, Join):
             build = self._exec(node.build, metrics, decisions, mgr)
             probe = self._exec(node.probe, metrics, decisions, mgr)
-            mem_q, dev_q, rsv = self._quotes(
-                self.selector.model.hash_need_bytes(len(build)))
+            decision, rsv = self._priced(
+                self.selector.model.hash_need_bytes(len(build)),
+                lambda mq, dq: self.selector.choose_join(
+                    build, probe, node.key, mem_quote=mq, dev_quote=dq))
 
             def join_tensor():
                 dev_b, up_b, log_b = self._to_device(build)
@@ -972,8 +999,6 @@ class Executor:
                 return out, m
 
             try:
-                decision = self._decide(self.selector.choose_join(
-                    build, probe, node.key, mem_quote=mem_q, dev_quote=dev_q))
                 decisions.append(decision)
                 if decision.path == "tensor":
                     out, m = join_tensor()
@@ -1042,9 +1067,11 @@ class Executor:
             return out
         if isinstance(node, Sort):
             child = self._exec(node.child, metrics, decisions, mgr)
-            mem_q, dev_q, rsv = self._quotes(
+            decision, rsv = self._priced(
                 self.selector.model.sort_need_bytes(
-                    len(child), child.row_bytes()))
+                    len(child), child.row_bytes()),
+                lambda mq, dq: self.selector.choose_sort(
+                    child, node.keys, mem_quote=mq, dev_quote=dq))
 
             def sort_tensor():
                 dev_c, up_c, log_c = self._to_device(child)
@@ -1058,8 +1085,6 @@ class Executor:
                 return out, m
 
             try:
-                decision = self._decide(self.selector.choose_sort(
-                    child, node.keys, mem_quote=mem_q, dev_quote=dev_q))
                 decisions.append(decision)
                 if decision.path == "tensor":
                     out, m = sort_tensor()
@@ -1119,12 +1144,12 @@ class Executor:
             # compares (data bytes), not the group-table estimate the
             # grant below requests — mixing units would price a spill an
             # ungoverned session with the same work_mem would never see
-            mem_q, dev_q, rsv = self._quotes(
+            decision, rsv = self._priced(
                 self.selector.model.sort_need_bytes(
-                    len(child), child.row_bytes()))
+                    len(child), child.row_bytes()),
+                lambda mq, dq: self.selector.choose_sort(
+                    child, [node.key], mem_quote=mq, dev_quote=dq))
             try:
-                decision = self._decide(self.selector.choose_sort(
-                    child, [node.key], mem_quote=mem_q, dev_quote=dev_q))
                 decisions.append(decision)
                 if decision.path == "tensor":
                     dev_c, up_c, log_c = self._to_device(child)

@@ -50,7 +50,7 @@ import torch
 from ..device import resolve_device, to_host
 from ..distributed.sharding import available_partitions, partition_placement
 from .codec_device import decode_device, dict_bucket, take
-from .metrics import OpMetrics, SpillAccount, Timer
+from .metrics import OpMetrics, SpillAccount, Timer, span
 from .partition import get_placed_columns, partition_bucket
 from .relation import Relation, column_token
 from .table_cache import get_device_layouts, key_stats
@@ -836,9 +836,13 @@ def _build_sharded_program(spec: FusedSpec, key: str, placement,
         return counts, scalar, dtype
 
     def program(bblocks, pblocks, brefs, prefs):
-        outs = [block(bcols, pcols, bdicts, pdicts, brefs, prefs, n_probe)
-                for (bcols, _, bdicts), (pcols, n_probe, pdicts)
-                in zip(bblocks, pblocks)]
+        outs = []
+        for card, ((bcols, _, bdicts), (pcols, n_probe, pdicts)) in \
+                enumerate(zip(bblocks, pblocks)):
+            with span("launch") as s:
+                s.set("card", card)
+                outs.append(block(bcols, pcols, bdicts, pdicts, brefs, prefs,
+                                  n_probe))
         dtype = outs[0][2]
         if len(outs) == 1:
             counts, scalar = outs[0][:2]
@@ -961,9 +965,12 @@ def run_fused(spec: FusedSpec, build: Relation, probe: Relation,
     with Timer() as t:
         # host planning is part of the query's wall time (the per-op
         # baseline pays for its planning inside its timers too)
-        capacity, dense_domain, kmin = _host_plan(build, probe, spec.join_key)
-        layouts_b, up_b, log_b = get_device_layouts(build, b_bucket, dev)
-        layouts_p, up_p, log_p = get_device_layouts(probe, p_bucket, dev)
+        with span("prepare") as s:
+            capacity, dense_domain, kmin = _host_plan(build, probe,
+                                                      spec.join_key)
+            layouts_b, up_b, log_b = get_device_layouts(build, b_bucket, dev)
+            layouts_p, up_p, log_p = get_device_layouts(probe, p_bucket, dev)
+            s.set("h2d_bytes", up_b + up_p)
         bcols = {k: dc.codes for k, dc in layouts_b.items()}
         pcols = {k: dc.codes for k, dc in layouts_p.items()}
         bdicts = {k: dc.dict_values for k, dc in layouts_b.items()
@@ -1009,8 +1016,10 @@ def run_fused(spec: FusedSpec, build: Relation, probe: Relation,
                 lease = broker.device_lease(batch_key=("fused", cache_key))
                 queue_wait += lease.wait_s
             try:
-                out = prog(bcols, pcols, bdicts, pdicts, brefs, prefs,
-                           n_build, n_probe, kmin)
+                with span("launch") as s:
+                    s.set("fresh", int(fresh))
+                    out = prog(bcols, pcols, bdicts, pdicts, brefs, prefs,
+                               n_build, n_probe, kmin)
                 fetched = _fetch(out)  # THE host sync of the query
             finally:
                 if lease is not None:
@@ -1022,6 +1031,8 @@ def run_fused(spec: FusedSpec, build: Relation, probe: Relation,
             if fresh:
                 _CACHE.mark_ready(cache_key)
             syncs += 1
+            # the host's work on the answer, from here to the Relation
+            finish = span("finish")
             total = int(fetched["total"])
             if dense_domain is not None and bool(fetched["has_dup"]):
                 # optimistic unique-key guess was wrong: fall back to the
@@ -1030,25 +1041,32 @@ def run_fused(spec: FusedSpec, build: Relation, probe: Relation,
                 dense_domain = None
                 key_mode = "value"
                 kmin = 0
+                finish.close()
                 continue
             if total <= capacity:
                 break
+            finish.close()
             if guard is not None:
                 # the overflow IS the observed fan-out: let the execution-
                 # time guard re-check the fragment decision before paying
                 # the retry dispatch (raises SwitchPoint to abandon)
                 guard.observe_fragment(total, capacity)
             capacity = capacity_bucket(total)  # rare: bucket overflowed
-        if spec.agg is not None:
-            if spec.agg[1] in ("min", "max") and int(fetched["agg_n"]) == 0:
-                raise ValueError(
-                    f"{spec.agg[1]} over an empty result has no identity")
-            result = float(fetched["scalar"])
-            rows_out = 1
-        else:
-            keep = np.nonzero(fetched["valid"])[0]
-            result = Relation({k: v[keep] for k, v in fetched["cols"].items()})
-            rows_out = len(result)
+        with finish:
+            if spec.agg is not None:
+                if (spec.agg[1] in ("min", "max")
+                        and int(fetched["agg_n"]) == 0):
+                    raise ValueError(
+                        f"{spec.agg[1]} over an empty result has no identity")
+                result = float(fetched["scalar"])
+                rows_out = 1
+            else:
+                keep = np.nonzero(fetched["valid"])[0]
+                result = Relation({k: v[keep]
+                                   for k, v in fetched["cols"].items()})
+                rows_out = len(result)
+            finish.set("rows_out", rows_out)
+            del fetched, out    # the fetched buffer goes back to its pool
     metrics = OpMetrics(
         op="fused_pipeline",
         path="tensor",
@@ -1099,11 +1117,15 @@ def _run_fused_sharded(spec: FusedSpec, build: Relation, probe: Relation,
     batched = False
     broker.ensure_lanes(num_parts)
     with Timer() as t:
-        stats = key_stats(build, spec.join_key)
-        (bblocks, counts_b, bucket_b, up_b, log_b,
-         b_lay) = get_placed_columns(build, spec.join_key, True, placement)
-        (pblocks, counts_p, bucket_p, up_p, log_p,
-         p_lay) = get_placed_columns(probe, spec.join_key, False, placement)
+        with span("prepare") as s:
+            stats = key_stats(build, spec.join_key)
+            (bblocks, counts_b, bucket_b, up_b, log_b,
+             b_lay) = get_placed_columns(build, spec.join_key, True,
+                                         placement)
+            (pblocks, counts_p, bucket_p, up_p, log_p,
+             p_lay) = get_placed_columns(probe, spec.join_key, False,
+                                         placement)
+            s.set("h2d_bytes", up_b + up_p)
         brefs = {k: lay.ref for k, lay in b_lay.items()
                  if lay.encoding == "for"}
         prefs = {k: lay.ref for k, lay in p_lay.items()
@@ -1158,10 +1180,13 @@ def _run_fused_sharded(spec: FusedSpec, build: Relation, probe: Relation,
                         partition_bucket(max_part))
                 break
             capacity = partition_bucket(max_part)  # rare: skewed overflow
-        if spec.agg[1] in ("min", "max") and int(fetched["agg_n"]) == 0:
-            raise ValueError(
-                f"{spec.agg[1]} over an empty result has no identity")
-        result = float(fetched["scalar"])
+        with span("finish") as s:
+            if spec.agg[1] in ("min", "max") and int(fetched["agg_n"]) == 0:
+                raise ValueError(
+                    f"{spec.agg[1]} over an empty result has no identity")
+            result = float(fetched["scalar"])
+            s.set("rows_out", 1)
+            del fetched, out
     metrics = OpMetrics(
         op="fused_pipeline",
         path="tensor",

@@ -5,10 +5,16 @@ The paper evaluates three families of metrics together (abstract, §V):
     study is predictability loss, not mean slowdown;
   * physical I/O — Temp_MB and 8 KB block counts (PostgreSQL-style);
   * peak working set of the linearized intermediate (hash table / sort runs).
+
+Beside them, :func:`span` records where one query's time goes, layer by
+layer, as nested spans on the host clock (off unless asked for; see
+:func:`start_spans`).
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
+import threading
 import time
 from typing import Dict, List, Optional
 
@@ -16,7 +22,9 @@ import numpy as np
 
 BLOCK_BYTES = 8192  # PostgreSQL temp-file block size; paper reports 25,662 blocks ≈ 200 MB
 
-__all__ = ["BLOCK_BYTES", "SpillAccount", "OpMetrics", "LatencyStats", "latency_stats", "Timer"]
+__all__ = ["BLOCK_BYTES", "SpillAccount", "OpMetrics", "LatencyStats",
+           "latency_stats", "Timer", "Span", "span", "start_spans",
+           "stop_spans", "spans_on"]
 
 
 @dataclasses.dataclass
@@ -164,11 +172,6 @@ class OpMetrics:
     # also counted in spill.bytes_read, so books stay balanced).
     reused_spill_bytes: int = 0
 
-    @property
-    def h2d_bytes_physical(self) -> int:
-        """Alias for :attr:`h2d_bytes` — the bytes that really moved."""
-        return self.h2d_bytes
-
     def as_row(self) -> Dict[str, object]:
         return {
             "op": self.op,
@@ -235,3 +238,151 @@ class Timer:
 
     def __exit__(self, *exc) -> None:
         self.elapsed = time.perf_counter() - self.t0
+
+
+# ---------------------------------------------------------------------------
+# Spans
+# ---------------------------------------------------------------------------
+#
+# Each layer of a query marks the work it does as a span: the query itself
+# (``Session.execute``), its plan, each path decision, the upload and host
+# planning before a launch, the wait for and the hold of each device lease,
+# the launch, the fetch and its pinned buffer, and the host work that
+# finishes the answer.  A span knows its parent (the span open on the same
+# thread when it opened) and its query (the id of its outermost span), so
+# the spans of concurrent queries stay apart.  Times are
+# ``time.perf_counter_ns()``, the clock ``time.perf_counter`` reads.
+#
+# The recorder is on between :func:`start_spans` and :func:`stop_spans`,
+# and while a ``torch.profiler`` session records in the process, so that a
+# profiled period carries the program's own spans; :func:`stop_spans` hands
+# over what was recorded either way.  Off, a span site costs two attribute
+# reads and returns the shared :data:`NO_SPAN`, which is false, so a site
+# can skip counting what only a span would carry.
+
+try:
+    from torch.autograd import profiler as _profiler
+
+    _profiler._is_profiler_enabled
+except (ImportError, AttributeError):  # a torch without the flag
+    class _profiler:  # noqa: N801
+        _is_profiler_enabled = False
+
+_on = False
+_done: List["Span"] = []
+_ids = itertools.count(1)
+_local = threading.local()
+
+
+class Span:
+    """One step of a query: ``name``, ``query`` (the id shared by every span
+    of one query), ``id``, ``parent`` (an id, None at a query's root),
+    ``thread`` (``threading.get_native_id()``), ``t0_ns`` and ``t1_ns``
+    (``time.perf_counter_ns()``) and ``attrs``, a small dict of counts.
+
+    Use it as a context manager, or :meth:`close` it where the work ends.
+    A span that raised gets ``attrs["error"]``, the exception's class name."""
+
+    __slots__ = ("name", "query", "id", "parent", "thread", "t0_ns", "t1_ns",
+                 "attrs", "_stack")
+
+    def set(self, key: str, value) -> "Span":
+        self.attrs[key] = value
+        return self
+
+    def close(self, t1_ns: Optional[int] = None) -> "Span":
+        """End the span now (or at ``t1_ns``).  Spans opened inside it and
+        left open, by an exception, end with it."""
+        if self.t1_ns is not None:
+            return self
+        self.t1_ns = time.perf_counter_ns() if t1_ns is None else t1_ns
+        stack = self._stack
+        if any(s is self for s in stack):
+            while True:
+                top = stack.pop()
+                if top is self:
+                    break
+                if top.t1_ns is None:
+                    top.t1_ns = self.t1_ns
+                    _done.append(top)
+        _done.append(self)
+        return self
+
+    def __enter__(self) -> "Span":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        if exc_type is not None:
+            self.attrs["error"] = exc_type.__name__
+        self.close()
+
+
+class _NoSpan:
+    """What a span site returns while the recorder is off."""
+
+    __slots__ = ()
+
+    def __bool__(self) -> bool:
+        return False
+
+    def set(self, key: str, value) -> "_NoSpan":
+        return self
+
+    def close(self, t1_ns: Optional[int] = None) -> "_NoSpan":
+        return self
+
+    def __enter__(self) -> "_NoSpan":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        return None
+
+
+NO_SPAN = _NoSpan()
+
+
+def spans_on() -> bool:
+    """Whether span sites record now."""
+    return _on or _profiler._is_profiler_enabled
+
+
+def span(name: str, t0_ns: Optional[int] = None):
+    """Open span ``name`` on this thread, from now or from ``t0_ns``: a
+    child of the span open on this thread, or the root of a new query.
+    Returns :data:`NO_SPAN` while the recorder is off."""
+    if not (_on or _profiler._is_profiler_enabled):
+        return NO_SPAN
+    stack = getattr(_local, "stack", None)
+    if stack is None:
+        stack = _local.stack = []
+    s = Span()
+    s.id = next(_ids)
+    if stack:
+        s.parent, s.query = stack[-1].id, stack[-1].query
+    else:
+        s.parent, s.query = None, s.id
+    s.name = name
+    s.thread = threading.get_native_id()
+    s.t0_ns = time.perf_counter_ns() if t0_ns is None else t0_ns
+    s.t1_ns = None
+    s.attrs = {}
+    s._stack = stack
+    stack.append(s)
+    return s
+
+
+def start_spans() -> None:
+    """Turn the recorder on, with nothing recorded yet."""
+    global _on, _done
+    _done = []
+    _on = True
+
+
+def stop_spans() -> List[Span]:
+    """Turn the recorder off and hand over every span closed since
+    :func:`start_spans` (or since the last call), in the order they
+    closed."""
+    global _on, _done
+    _on = False
+    out, _done = _done, []
+    return out

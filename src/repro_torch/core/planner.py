@@ -48,6 +48,7 @@ from .expr import CombinedPredicate, Expr
 from .logical import (LAggregate, LFilter, LGroupBy, LJoin, LProject, LScan,
                       LSort, LogicalNode, from_physical, is_scalar,
                       join_schema, schema)
+from .metrics import span
 from .relation import Relation, column_token
 
 __all__ = ["plan_program", "push_filters", "prune_columns", "pack_pair",
@@ -433,7 +434,9 @@ class Program:
         metrics, decisions = [], []
         result = None
         for stage in self.stages:
-            result = executor.execute(stage.build_physical(outputs))
+            with span("plan"):
+                physical = stage.build_physical(outputs)
+            result = executor.execute(physical)
             metrics.extend(result.metrics)
             decisions.extend(result.decisions)
             outputs.append(result.relation)

@@ -39,7 +39,7 @@ scheduling only, never results (asserted bit-for-bit in tests and fig12).
 :class:`PressureQuote` is non-binding, so between "the quote said the full
 grant is free" and "the operator acquires", a concurrent grant can take the
 bytes — ``auto`` then runs its *linear* decision on a *degraded* grant it
-never priced (the decide-then-lose incident fig13 counts).
+never priced (a decide-then-lose incident).
 :meth:`ResourceBroker.reserve` pairs the quote with a short-TTL
 :class:`~repro_torch.core.memory_governor.MemoryHold`: the quoted bytes are
 committed at decision time, :meth:`memory_lease` converts the hold without
@@ -67,6 +67,7 @@ from typing import Dict, List, Optional, Tuple
 
 from .faults import FaultInjector, PreemptedError
 from .memory_governor import MemoryGovernor, MemoryGrant, MemoryHold
+from .metrics import NO_SPAN, span, spans_on
 
 __all__ = ["ResourceBroker", "ResourceRequest", "PressureQuote",
            "Reservation", "PreemptToken", "MemoryLease", "DeviceLease",
@@ -271,13 +272,18 @@ class MemoryLease:
 
 
 class _Ticket:
-    __slots__ = ("batch_key", "admitted", "batched", "t_admit")
+    __slots__ = ("batch_key", "admitted", "batched", "t_admit", "group",
+                 "span")
 
     def __init__(self, batch_key):
         self.batch_key = batch_key
         self.admitted = False
         self.batched = False
-        self.t_admit = 0.0
+        self.t_admit = 0          # time.perf_counter_ns() at admission
+        # leases admitted in this ticket's group so far, joiners included:
+        # one list shared by the group's tickets
+        self.group = None
+        self.span = NO_SPAN       # its ``lease_hold`` span
 
 
 class DeviceLease:
@@ -332,13 +338,14 @@ class DeviceGangLease:
     accumulate; ``lane_waits`` keeps the per-lane attribution).
     """
 
-    __slots__ = ("_leases", "wait_s", "lane_waits", "_released")
+    __slots__ = ("_leases", "wait_s", "lane_waits", "_released", "_span")
 
-    def __init__(self, leases: List[DeviceLease]):
+    def __init__(self, leases: List[DeviceLease], hold=NO_SPAN):
         self._leases = leases
         self.lane_waits = tuple(l.wait_s for l in leases)
         self.wait_s = sum(self.lane_waits)
         self._released = False
+        self._span = hold
 
     @property
     def lanes(self) -> int:
@@ -358,6 +365,7 @@ class DeviceGangLease:
         self._released = True
         for lease in reversed(self._leases):
             lease.release()
+        self._span.set("group", 1).set("lanes", len(self._leases)).close()
 
     def __enter__(self) -> "DeviceGangLease":
         return self
@@ -408,10 +416,8 @@ class DeviceQueue:
         self._active_key = None  # batch key of the running group, if keyed
         # cumulative counters (snapshot via stats())
         self._dispatches = 0
-        self._groups = 0
         self._coalesced = 0
         self._bypassed = 0
-        self._wait_s_total = 0.0
         self._peak_depth = 0
         self._ewma_wait_s = 0.0
         self._ewma_service_s = 0.0
@@ -423,15 +429,25 @@ class DeviceQueue:
         return os.environ.get("REPRO_DEVICE_SERIALIZE", "1") != "0"
 
     # -- lease lifecycle -----------------------------------------------------
-    def acquire(self, batch_key=None) -> DeviceLease:
+    def acquire(self, batch_key=None, traced: bool = True) -> DeviceLease:
+        """Queue for the device and return the admitted lease.
+
+        The wait is a ``lease_wait`` span (``depth``: leases waiting and
+        active at arrival; a join to the in-flight group is a zero-length
+        span), and the hold from admission to release a ``lease_hold``
+        span, open on this thread meanwhile so the launch and the fetch nest
+        under it (``group``: the leases admitted in its group, joiners
+        included, counted at release).  ``traced=False`` leaves both to the
+        caller (a gang records its own)."""
         if not self.serialize():
             with self._cond:
                 self._dispatches += 1
                 self._bypassed += 1
             return DeviceLease(self, None, 0.0)
-        t0 = time.perf_counter()
+        t0 = time.perf_counter_ns()
         ticket = _Ticket(batch_key)
         with self._cond:
+            depth = len(self._waiting) + len(self._active)
             if (batch_key is not None and self._active
                     and self._active_key == batch_key and not self._waiting
                     and (self.max_group is None
@@ -441,6 +457,8 @@ class DeviceQueue:
                 # waiting whose arrival order this could violate
                 ticket.admitted = True
                 ticket.batched = True
+                ticket.group = self._active[0].group
+                ticket.group[0] += 1
                 # a previously-solo round becomes batched when joined:
                 # count every member that newly shares a group, not just
                 # the joiner, so `coalesced` means "leases that ran in a
@@ -451,22 +469,24 @@ class DeviceQueue:
                         self._coalesced += 1
                 self._active.append(ticket)
                 self._peak_depth = max(self._peak_depth, len(self._active))
-                ticket.t_admit = time.perf_counter()
+                ticket.t_admit = time.perf_counter_ns()
                 self._dispatches += 1
                 self._coalesced += 1
                 self._ewma_wait_s = _ewma(self._ewma_wait_s, 0.0)
-                return DeviceLease(self, ticket, 0.0)
-            self._waiting.append(ticket)
-            self._peak_depth = max(self._peak_depth,
-                                   len(self._waiting) + len(self._active))
-            self._admit_locked()
-            while not ticket.admitted:
-                self._cond.wait()
-            wait = time.perf_counter() - t0
-            ticket.t_admit = time.perf_counter()
-            self._dispatches += 1
-            self._wait_s_total += wait
-            self._ewma_wait_s = _ewma(self._ewma_wait_s, wait)
+                wait = 0.0
+            else:
+                self._waiting.append(ticket)
+                self._peak_depth = max(self._peak_depth, depth + 1)
+                self._admit_locked()
+                while not ticket.admitted:
+                    self._cond.wait()
+                ticket.t_admit = time.perf_counter_ns()
+                wait = (ticket.t_admit - t0) / 1e9
+                self._dispatches += 1
+                self._ewma_wait_s = _ewma(self._ewma_wait_s, wait)
+        if traced:
+            span("lease_wait", t0).set("depth", depth).close(ticket.t_admit)
+            ticket.span = span("lease_hold", ticket.t_admit)
         return DeviceLease(self, ticket, wait)
 
     def _admit_locked(self) -> None:
@@ -484,13 +504,14 @@ class DeviceQueue:
                 if t.batch_key == head.batch_key:
                     group.append(t)
         batched = len(group) > 1
+        members = [len(group)]
         for t in group:
             self._waiting.remove(t)
             t.admitted = True
             t.batched = batched
+            t.group = members
         self._active = group
         self._active_key = head.batch_key
-        self._groups += 1
         if batched:
             self._coalesced += len(group)
         self._cond.notify_all()
@@ -498,13 +519,16 @@ class DeviceQueue:
     def _release(self, ticket: Optional[_Ticket]) -> None:
         if ticket is None:  # bypass lease (REPRO_DEVICE_SERIALIZE=0)
             return
+        t1 = time.perf_counter_ns()
         with self._cond:
             self._active.remove(ticket)
-            self._ewma_service_s = _ewma(
-                self._ewma_service_s, time.perf_counter() - ticket.t_admit)
+            self._ewma_service_s = _ewma(self._ewma_service_s,
+                                         (t1 - ticket.t_admit) / 1e9)
+            group = ticket.group[0]
             if not self._active:
                 self._active_key = None
                 self._admit_locked()
+        ticket.span.set("group", group).close(t1)
 
     # -- pricing -------------------------------------------------------------
     def expected_wait(self, batch_key=None):
@@ -550,13 +574,10 @@ class DeviceQueue:
             return {
                 "depth": len(self._waiting) + len(self._active),
                 "dispatches": self._dispatches,
-                "groups": self._groups,
                 "coalesced": self._coalesced,
                 "bypassed": self._bypassed,
-                "wait_s_total": self._wait_s_total,
                 "peak_depth": self._peak_depth,
                 "ewma_wait_s": self._ewma_wait_s,
-                "ewma_service_s": self._ewma_service_s,
             }
 
 
@@ -570,49 +591,29 @@ def _ewma(old: float, sample: float) -> float:
 
 @dataclasses.dataclass
 class BrokerStats:
-    """Snapshot of the broker's queue accounting (see :meth:`ResourceBroker.
-    stats`).  Counters are cumulative; EWMA/peak fields are gauges —
+    """Snapshot of the broker's accounting (see :meth:`ResourceBroker.
+    stats`).  Counters are cumulative; EWMA/peak entries are gauges —
     :meth:`since` subtracts a baseline snapshot's counters for per-run
     reporting (the same discipline :class:`~repro_torch.core.server.ServeReport`
     applies to governor stats)."""
 
-    device_dispatches: int = 0
-    device_groups: int = 0          # serial admission rounds
-    device_coalesced: int = 0       # leases that shared a batched group
     device_bypassed: int = 0        # REPRO_DEVICE_SERIALIZE=0 grants
-    device_wait_s_total: float = 0.0
-    device_peak_depth: int = 0
-    device_ewma_wait_s: float = 0.0
-    device_ewma_service_s: float = 0.0
-    mem_leases: int = 0
-    mem_wait_s_total: float = 0.0
-    mem_ewma_wait_s: float = 0.0
-    mem_ewma_hold_s: float = 0.0
-    quotes: int = 0
-    quotes_blocking: int = 0        # memory quotes that would have parked
-    reservations: int = 0           # price-and-hold reservations placed
-    decide_then_lose: int = 0       # priced-unblocked decisions that then
-                                    # waited or got a smaller grant
     preempt_registered: int = 0     # degraded linear ops that ran preemptible
     preemptions: int = 0            # tokens actually cancelled
     switches: int = 0               # guard-initiated mid-query path switches
-    # Per-lane DeviceQueue snapshots (lane 0 first — the same queue the
-    # device_* aggregate fields above describe; lanes beyond 0 exist only
-    # on brokers serving sharded dispatch).  Each entry is the lane's
-    # ``DeviceQueue.stats()`` dict: depth, peak_depth, dispatches, groups,
-    # coalesced, bypassed, wait_s_total, ewma_wait_s, ewma_service_s.
+    # Per-lane DeviceQueue snapshots (lane 0 first — the classic
+    # single-device queue; lanes beyond 0 exist only on brokers serving
+    # sharded dispatch).  Each entry is the lane's ``DeviceQueue.stats()``
+    # dict: depth, peak_depth, dispatches, coalesced, bypassed,
+    # ewma_wait_s.
     lanes: Tuple[Dict[str, float], ...] = ()
 
-    _LANE_COUNTERS = ("dispatches", "groups", "coalesced", "bypassed",
-                      "wait_s_total")
+    _LANE_COUNTERS = ("dispatches", "coalesced", "bypassed")
 
     def since(self, base: "BrokerStats") -> "BrokerStats":
         out = dataclasses.replace(self)
-        for f in ("device_dispatches", "device_groups", "device_coalesced",
-                  "device_bypassed", "device_wait_s_total", "mem_leases",
-                  "mem_wait_s_total", "quotes", "quotes_blocking",
-                  "reservations", "decide_then_lose", "preempt_registered",
-                  "preemptions", "switches"):
+        for f in ("device_bypassed", "preempt_registered", "preemptions",
+                  "switches"):
             setattr(out, f, getattr(self, f) - getattr(base, f))
         lanes = []
         for i, lane in enumerate(self.lanes):
@@ -651,20 +652,13 @@ class ResourceBroker:
         # ensure_lanes() and share lane 0's max_group.
         self._lanes: List[DeviceQueue] = [self.device]
         self.queue_pricing = bool(queue_pricing)
-        # price-and-hold on/off: False is the quote-only ablation fig13
-        # measures decide-then-lose incidents against
+        # price-and-hold on/off: False is the quote-only ablation
         self.reservations = bool(reservations)
         self.reservation_ttl_s = float(reservation_ttl_s)
         self.faults = faults
         self._lock = threading.Lock()
-        self._mem_leases = 0
-        self._mem_wait_s_total = 0.0
         self._mem_ewma_wait_s = 0.0
         self._mem_ewma_hold_s = 0.0
-        self._quotes = 0
-        self._quotes_blocking = 0
-        self._reservations = 0
-        self._decide_then_lose = 0
         self._preemptible: List[PreemptToken] = []
         self._preempt_registered = 0
         self._preemptions = 0
@@ -678,10 +672,8 @@ class ResourceBroker:
         the EWMA that prices future memory quotes.
 
         ``reservation`` redeems a :meth:`reserve` decision: an active hold
-        converts without waiting; a quote-only reservation acquires normally
-        and — when its quote promised an unblocked grant the acquisition did
-        not honor (smaller size, or it waited) — records a decide-then-lose
-        incident, the race the reservation mechanism exists to close."""
+        converts without waiting; a quote-only reservation acquires
+        normally."""
         if self.governor is None:
             raise RuntimeError("broker has no memory governor; memory leases "
                                "require a governed session")
@@ -689,18 +681,10 @@ class ResourceBroker:
             self.faults.on_memory_grant()
         hold = reservation._hold if reservation is not None else None
         grant = self.governor.acquire(need_bytes, timeout=timeout, hold=hold)
-        with self._lock:
-            self._mem_leases += 1
-            self._mem_wait_s_total += grant.wait_s
-            if grant.wait_s > 0:
+        if grant.wait_s > 0:
+            with self._lock:
                 self._mem_ewma_wait_s = _ewma(self._mem_ewma_wait_s,
                                               grant.wait_s)
-            if (reservation is not None
-                    and reservation.quote.resource == "memory"
-                    and not reservation.quote.would_block
-                    and (grant.size < reservation.quote.grant_bytes
-                         or grant.wait_s > 0)):
-                self._decide_then_lose += 1
         return MemoryLease(self, grant)
 
     @property
@@ -741,14 +725,19 @@ class ResourceBroker:
         # fixed lane order serializes gangs against each other and against
         # single-lane (lane 0) dispatch.
         held: List[DeviceLease] = []
+        t0 = time.perf_counter_ns()
+        depth = (max(q.stats()["depth"] for q in queues) if spans_on()
+                 else 0)
         try:
             for q in queues:
-                held.append(q.acquire(None))
+                held.append(q.acquire(None, traced=False))
         except BaseException:
             for lease in reversed(held):
                 lease.release()
             raise
-        return DeviceGangLease(held)
+        t_admit = time.perf_counter_ns()
+        span("lease_wait", t0).set("depth", depth).close(t_admit)
+        return DeviceGangLease(held, span("lease_hold", t_admit))
 
     # -- reservations --------------------------------------------------------
     def reserve(self, request: ResourceRequest) -> Reservation:
@@ -764,9 +753,6 @@ class ResourceBroker:
             hold = self.governor.hold(request.need_bytes,
                                       ttl_s=self.reservation_ttl_s)
             if hold is not None:
-                with self._lock:
-                    self._quotes += 1
-                    self._reservations += 1
                 quote = PressureQuote("memory", hold.size, 0.0,
                                       0, False)
                 return Reservation(quote, hold, self)
@@ -823,7 +809,6 @@ class ResourceBroker:
         blocks, never reserves anything."""
         if request.resource == "device":
             with self._lock:
-                self._quotes += 1
                 queues = list(self._lanes[:max(1, request.lanes)])
             lane_waits = []
             depth = 0
@@ -852,14 +837,12 @@ class ResourceBroker:
             # a uniformly-arriving release is half the window
             wait = 0.5 * gov.full_grant_wait_s
         with self._lock:
-            self._quotes += 1
             if would_block or waiters > 0:
                 # Waiters with no would_block means the pool momentarily has
                 # free bytes AND standing parked demand: those bytes are
                 # ephemeral — a woken waiter grabs them before a request
                 # that only decided now gets to acquire — so admission is
                 # priced as contended either way.
-                self._quotes_blocking += 1
                 if self.queue_pricing:
                     # Expected admission wait: the larger of the observed
                     # admission-wait EWMA and the residual of the current
@@ -887,29 +870,13 @@ class ResourceBroker:
 
     # -- observability -------------------------------------------------------
     def stats(self) -> BrokerStats:
-        dev = self.device.stats()
         with self._lock:
             lane_queues = list(self._lanes)
         lanes = tuple(q.stats() for q in lane_queues)
         with self._lock:
             return BrokerStats(
                 lanes=lanes,
-                device_dispatches=dev["dispatches"],
-                device_groups=dev["groups"],
-                device_coalesced=dev["coalesced"],
-                device_bypassed=dev["bypassed"],
-                device_wait_s_total=dev["wait_s_total"],
-                device_peak_depth=dev["peak_depth"],
-                device_ewma_wait_s=dev["ewma_wait_s"],
-                device_ewma_service_s=dev["ewma_service_s"],
-                mem_leases=self._mem_leases,
-                mem_wait_s_total=self._mem_wait_s_total,
-                mem_ewma_wait_s=self._mem_ewma_wait_s,
-                mem_ewma_hold_s=self._mem_ewma_hold_s,
-                quotes=self._quotes,
-                quotes_blocking=self._quotes_blocking,
-                reservations=self._reservations,
-                decide_then_lose=self._decide_then_lose,
+                device_bypassed=lanes[0]["bypassed"],
                 preempt_registered=self._preempt_registered,
                 preemptions=self._preemptions,
                 switches=self._switches,

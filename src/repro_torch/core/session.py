@@ -43,6 +43,7 @@ from .expr import Expr
 from .logical import (LAggregate, LFilter, LGroupBy, LJoin, LProject, LScan,
                       LSort, LogicalNode, schema)
 from .memory_governor import MemoryGovernor
+from .metrics import span
 from .path_selector import PathSelector
 from .resource_broker import ResourceBroker
 from .relation import Relation
@@ -157,8 +158,11 @@ class Session:
         (lowered through :func:`repro_torch.core.logical.from_physical`)."""
         from .planner import plan_program
 
-        node = plan.logical() if isinstance(plan, Query) else plan
-        return plan_program(node, rewrite=rewrite).run(self.executor)
+        with span("query"):
+            with span("plan"):
+                node = plan.logical() if isinstance(plan, Query) else plan
+                program = plan_program(node, rewrite=rewrite)
+            return program.run(self.executor)
 
 
 class Query:

@@ -253,6 +253,16 @@ def to_host(tensors) -> list:
     views into that buffer.  On the CPU the arrays share the tensors'
     memory.  numpy has no bfloat16: a bfloat16 tensor is cast to float32
     on its device first (exactly), and comes back as float32."""
+    from .core.metrics import span
+
+    with span("fetch") as s:
+        arrays = _to_host(tensors)
+        if s:
+            s.set("bytes", sum(a.nbytes for a in arrays))
+    return arrays
+
+
+def _to_host(tensors) -> list:
     tensors = [t.detach() for t in tensors]
     tensors = [t.float() if t.dtype == torch.bfloat16 else t
                for t in tensors]
@@ -273,7 +283,12 @@ def to_host(tensors) -> list:
         metas.append((offset, nbytes, _NP_DTYPES[t.dtype], tuple(t.shape)))
         offset += nbytes + pad
     packed = torch.cat(pieces)
-    host = torch.empty(packed.numel(), dtype=torch.uint8, pin_memory=True)
+    from .core.metrics import span
+
+    with span("pin") as s:
+        host = torch.empty(packed.numel(), dtype=torch.uint8,
+                           pin_memory=True)
+        s.set("bytes", packed.numel())
     host.copy_(packed, non_blocking=True)
     torch.cuda.current_stream(dev).synchronize()
     buf = host.numpy()
