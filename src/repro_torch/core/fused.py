@@ -20,7 +20,12 @@ with no host round trip between them) that:
     single batched fetch of the root result (plus the piggybacked exact match
     count).  If the optimistic capacity bucket overflows — detected from that
     same fetch, never from a separate sync — the run loop re-runs at the exact
-    bucket, which the cache then holds for every later query of that shape.
+    bucket, which the cache then holds for every later query of that shape;
+  * materializes only the **survivors**: once a fragment has run over its
+    data, its later runs compact the join slots that pass the filter, in
+    slot order, into a survivor bucket (a verified hint, a runtime input,
+    not part of the cache key) before the sort, the output gathers and the
+    fetch, which then move the bucket, not the join's capacity.
 
 Host-side planning (capacity estimation from a key sample) reads only the
 numpy inputs and costs no device traffic.  The dense join core runs the
@@ -354,6 +359,7 @@ def pipeline_cache_info() -> Dict[str, int]:
 
 def pipeline_cache_clear() -> None:
     _CACHE.clear()
+    _BUCKET_HINTS.clear()
 
 
 class PredicateError(Exception):
@@ -444,7 +450,7 @@ def _join_sorted(bk, pk, n_build, n_probe, capacity):
     counts = torch.where((iota_p < n_probe) & (pk != _I64_MAX), counts, 0)
     ends = torch.cumsum(counts, 0)
     starts = ends - counts
-    total = ends[-1]
+    total = ends[-1].clone()  # a view would hold all of `ends` to the fetch
     slot = torch.arange(capacity, dtype=torch.int64, device=dev)
     # expansion by scan, not binary search: scatter each matched probe row's
     # index at its start slot (starts of matched rows are distinct; the
@@ -543,7 +549,7 @@ def _join_dense(bk, pk, n_build, n_probe, capacity, domain: int, kmin: int):
         bk0c.to(torch.int32), pk0c.to(torch.int32), domain)
     matched = p_live & (cnt_p > 0)
     ends = torch.cumsum(matched.to(torch.int64), 0)
-    total = ends[-1]
+    total = ends[-1].clone()  # a view would hold all of `ends` to the fetch
     slot = torch.arange(capacity, dtype=torch.int64, device=dev)
     pos = torch.where(matched, torch.clamp(ends - 1, max=capacity - 1),
                       capacity)
@@ -554,6 +560,35 @@ def _join_dense(bk, pk, n_build, n_probe, capacity, domain: int, kmin: int):
     return build_idx, probe_idx, valid, total, has_dup
 
 
+def _compact(valid: torch.Tensor, bucket: int):
+    """``(slots, kept)``: the join slots where ``valid`` holds, in slot
+    order, in the first ``min(kept, bucket)`` of ``bucket`` positions, and
+    ``kept``, their count.  Position ``i`` takes the slot where the running
+    count of survivors passes ``i``, by a binary search of the count: no
+    slot is written anywhere (a scatter of every slot would pile the
+    discarded ones onto one dead slot).  The padding positions read the
+    last slot.  ``kept`` rides the fetch, and a ``kept`` above ``bucket``
+    re-runs the program on a larger bucket."""
+    ends = torch.cumsum(valid, 0)
+    pos = torch.arange(bucket, device=valid.device)
+    slots = torch.searchsorted(ends, pos, right=True)
+    return slots.clamp_(max=valid.shape[0] - 1), ends[-1].clone()
+
+
+def _survivors_first(terms: torch.Tensor, v: torch.Tensor,
+                     capacity: int) -> torch.Tensor:
+    """A sorted float sum's terms in one layout for any survivor bucket:
+    the survivors in sorted order, then zeros up to ``capacity``.  The sort
+    puts a filler row (its first key pinned to the dtype's maximum) among
+    the survivors only where a survivor's first key is that maximum too, or
+    NaN; a float sum's bits follow the layout of its reduction, so the
+    compacted and the uncompacted program both lay the terms out so."""
+    ends = torch.cumsum(v, 0)
+    idx = torch.arange(v.shape[0], device=v.device)
+    pos = torch.where(v, ends - 1, ends[-1] + idx - ends)
+    return terms.new_zeros(capacity).scatter_(0, pos, terms)
+
+
 def _build_program(spec: FusedSpec, key: str, capacity: int,
                    dense_domain: Optional[int] = None,
                    key_mode: str = "value",
@@ -562,7 +597,9 @@ def _build_program(spec: FusedSpec, key: str, capacity: int,
 
     ``dense_domain`` (a power-of-two bucket) selects the sort-free
     coordinate join core; the domain offset ``kmin`` is a runtime input so
-    drifting key ranges reuse the program.
+    drifting key ranges reuse the program, and so is the survivor
+    ``bucket``: below ``capacity`` the program compacts the join slots
+    that pass the filter into that many (:func:`_compact`).
 
     ``bsig``/``psig`` are the per-column layout signatures
     (:meth:`~repro_torch.core.codec_device.DeviceColumnLayout.signature`) of
@@ -584,7 +621,7 @@ def _build_program(spec: FusedSpec, key: str, capacity: int,
     """
 
     def program(bcols: Dict[str, torch.Tensor], pcols: Dict[str, torch.Tensor],
-                bdicts, pdicts, brefs, prefs, n_build, n_probe, kmin):
+                bdicts, pdicts, brefs, prefs, n_build, n_probe, kmin, bucket):
         bdec = _decoders(bsig, bdicts, brefs)
         pdec = _decoders(psig, pdicts, prefs)
         dev = pcols[key].device
@@ -623,6 +660,19 @@ def _build_program(spec: FusedSpec, key: str, capacity: int,
         if spec.filter_fn is not None:
             valid = valid & device_mask(spec.filter_fn, view, capacity, dev)
 
+        rows = capacity
+        if bucket < capacity:
+            # late materialization of the survivors: the join's and the
+            # filter's slots compacted in slot order into the bucket, so the
+            # sort, the gathers and the fetch run over it, not the capacity
+            slots, kept = _compact(valid, bucket)
+            view = _JoinView(bcols, pcols, key, build_idx[slots],
+                             probe_idx[slots], bdec, pdec)
+            rows = bucket
+            valid = torch.arange(bucket, device=dev) < kept
+        else:
+            kept = valid.sum()
+
         perm = None
         if spec.sort_keys:
             # ONE multi-operand lexicographic device sort: key axes stay
@@ -630,14 +680,15 @@ def _build_program(spec: FusedSpec, key: str, capacity: int,
             # Invalid rows sink by pinning their most-significant key to the
             # dtype maximum — their relative position among real max-key
             # rows is irrelevant because only valid rows survive
-            # materialization.
+            # materialization (the fetched ``valid``; a float sum lays the
+            # survivors out first, :func:`_survivors_first`).
             # unsigned keys map to signed ones of the same order first:
             # CUDA has no ``where`` for uint16/32/64
             keys0 = [_order_key(view[k]) for k in spec.sort_keys]
             msk = keys0[0]
             operands = ([torch.where(valid, msk, _fill_max(msk.dtype))]
                         + keys0[1:])
-            perm = _lex_perm(operands, capacity, dev)
+            perm = _lex_perm(operands, rows, dev)
 
         if spec.agg is not None:
             col_name, fn = spec.agg
@@ -647,8 +698,11 @@ def _build_program(spec: FusedSpec, key: str, capacity: int,
             # integer columns reduce in int64 (exact, matches the host path
             # bit-for-bit — f64 would lose integer sums past 2^53)
             if fn == "sum":
-                scalar = torch.where(v, c, torch.zeros((), dtype=c.dtype,
-                                                       device=dev)).sum()
+                terms = torch.where(v, c, torch.zeros((), dtype=c.dtype,
+                                                      device=dev))
+                if perm is not None and c.dtype.is_floating_point:
+                    terms = _survivors_first(terms, v, capacity)
+                scalar = terms.sum()
             elif fn == "count":
                 scalar = v.sum().to(torch.int64)
             elif fn == "min":
@@ -657,11 +711,11 @@ def _build_program(spec: FusedSpec, key: str, capacity: int,
                 scalar = torch.where(v, c, _fill_min(c.dtype)).max()
             else:
                 raise ValueError(fn)
-            # agg_n rides the fetch so run_fused can reject min/max over an
+            # kept rides the fetch so run_fused can reject min/max over an
             # empty result (the fill value is not a legitimate answer) the
             # way the host path's numpy reduction does
             return {"total": total, "has_dup": has_dup, "scalar": scalar,
-                    "agg_n": v.sum()}
+                    "kept": kept}
 
         # relation root (sort is the last stage): gather the output schema
         # through the sorted indices — the only payload gathers in the
@@ -672,8 +726,8 @@ def _build_program(spec: FusedSpec, key: str, capacity: int,
                            else take(view[name], perm))
                     for name in out_names}
         out_valid = valid if perm is None else valid[perm]
-        return {"total": total, "has_dup": has_dup, "cols": out_cols,
-                "valid": out_valid}
+        return {"total": total, "has_dup": has_dup, "kept": kept,
+                "cols": out_cols, "valid": out_valid}
 
     return program
 
@@ -841,6 +895,9 @@ def _build_sharded_program(spec: FusedSpec, key: str, placement,
                 enumerate(zip(bblocks, pblocks)):
             with span("launch") as s:
                 s.set("card", card)
+                # the sharded fragment does not compact its survivors
+                s.set("capacity", capacity)
+                s.set("bucket", capacity)
                 outs.append(block(bcols, pcols, bdicts, pdicts, brefs, prefs,
                                   n_probe))
         dtype = outs[0][2]
@@ -889,6 +946,63 @@ def _fetch(out: Dict) -> Dict:
 # broker launch times instead of run times.
 
 
+class _Hints:
+    """Verified sizes by (fragment, data) key, each raised with ``max()``
+    and never lowered: content-addressed, so a mutated table simply misses
+    and re-plans.  Bounded as a backstop; overflow costs at most one extra
+    retry per entry.  Concurrent queries share it under one lock."""
+
+    def __init__(self, cap: int = 512):
+        self._sizes: Dict[tuple, int] = {}
+        self._lock = threading.Lock()
+        self._cap = cap
+
+    def get(self, key: tuple, default: Optional[int] = None):
+        with self._lock:
+            return self._sizes.get(key, default)
+
+    def raise_to(self, key: tuple, size: int) -> None:
+        with self._lock:
+            if key not in self._sizes and len(self._sizes) >= self._cap:
+                self._sizes.clear()
+            self._sizes[key] = max(self._sizes.get(key, 0), size)
+
+    def clear(self) -> None:
+        with self._lock:
+            self._sizes.clear()
+
+
+# The survivor bucket of each single-device fragment over its data
+# (:func:`run_fused`), by :func:`_bucket_key`.
+_BUCKET_HINTS = _Hints()
+
+
+def _template(token):
+    """A predicate's cache key without the values of its constants: one
+    query template over every literal it is run with (TPC-H's substitution
+    parameters).  Opaque callables keep their whole key."""
+    if not isinstance(token, tuple) or not token:
+        return token
+    if token[0] == "lit":
+        return token[:2]
+    if token[0] == "isin":
+        return ("isin", _template(token[1]), len(token[2]))
+    if token[0] in ("code", "id"):
+        return token
+    return tuple(_template(t) for t in token)
+
+
+def _bucket_key(spec: FusedSpec, build: Relation, probe: Relation) -> tuple:
+    """The fragment's template and its data: the filter may read any
+    column, so the token of every column of both sides.  The literals are
+    left out: ``max()`` makes the bucket hold the survivors of every
+    literal seen, and a literal that keeps more costs one retry."""
+    return (spec.join_key, _template(_predicate_key(spec.filter_fn)),
+            spec.sort_keys, spec.agg, spec.project,
+            tuple((name, column_token(rel.columns[name]))
+                  for rel in (build, probe) for name in rel.names))
+
+
 def _host_plan(build: Relation, probe: Relation, key: str):
     """Host-side planning from the numpy inputs — free of device traffic.
 
@@ -915,7 +1029,9 @@ def run_fused(spec: FusedSpec, build: Relation, probe: Relation,
 
     Happy path: one program launch sequence + one batched device→host fetch.
     Capacity overflow (optimistic bucket too small) re-runs once at the exact
-    bucket; both programs stay cached for subsequent queries.
+    bucket; both programs stay cached for subsequent queries.  A survivor
+    bucket below the survivors' count (a stale hint) re-runs once on
+    theirs.
 
     Device dispatch acquires a :class:`~repro_torch.core.resource_broker.
     DeviceLease` from ``broker`` (the process-wide default broker when none
@@ -971,6 +1087,16 @@ def run_fused(spec: FusedSpec, build: Relation, probe: Relation,
             layouts_b, up_b, log_b = get_device_layouts(build, b_bucket, dev)
             layouts_p, up_p, log_p = get_device_layouts(probe, p_bucket, dev)
             s.set("h2d_bytes", up_b + up_p)
+            # the survivor bucket: where an earlier run of this fragment
+            # over the same data counted its survivors, the program compacts
+            # them into that many slots; a bucket that proves too small (the
+            # count rides the fetch) re-runs on one that holds them.  An
+            # aggregate with no sort has nothing to gain: it sorts nothing
+            # and fetches one scalar
+            hint_key = hint = None
+            if spec.sort_keys or spec.agg is None:
+                hint_key = _bucket_key(spec, build, probe)
+                hint = _BUCKET_HINTS.get(hint_key)
         bcols = {k: dc.codes for k, dc in layouts_b.items()}
         pcols = {k: dc.codes for k, dc in layouts_p.items()}
         bdicts = {k: dc.dict_values for k, dc in layouts_b.items()
@@ -999,6 +1125,7 @@ def run_fused(spec: FusedSpec, build: Relation, probe: Relation,
                 dense_domain = dict_bucket(bkey.layout.card)
                 kmin = 0
         while True:
+            bucket = capacity if hint is None else min(hint, capacity)
             cache_key = (spec.cache_signature(), capacity, b_bucket,
                          p_bucket, dense_domain, key_mode, bsig, psig,
                          dev.type)
@@ -1018,8 +1145,10 @@ def run_fused(spec: FusedSpec, build: Relation, probe: Relation,
             try:
                 with span("launch") as s:
                     s.set("fresh", int(fresh))
+                    s.set("capacity", capacity)
+                    s.set("bucket", bucket)
                     out = prog(bcols, pcols, bdicts, pdicts, brefs, prefs,
-                               n_build, n_probe, kmin)
+                               n_build, n_probe, kmin, bucket)
                 fetched = _fetch(out)  # THE host sync of the query
             finally:
                 if lease is not None:
@@ -1043,19 +1172,29 @@ def run_fused(spec: FusedSpec, build: Relation, probe: Relation,
                 kmin = 0
                 finish.close()
                 continue
-            if total <= capacity:
+            if total > capacity:
+                finish.close()
+                if guard is not None:
+                    # the overflow IS the observed fan-out: let the
+                    # execution-time guard re-check the fragment decision
+                    # before paying the retry dispatch (raises SwitchPoint
+                    # to abandon)
+                    guard.observe_fragment(total, capacity)
+                capacity = capacity_bucket(total)  # rare: bucket overflowed
+                continue
+            kept = int(fetched["kept"])
+            if kept <= bucket:
                 break
+            # rare: a stale hint; the join's fan-out was right, so the
+            # guard has nothing to observe
             finish.close()
-            if guard is not None:
-                # the overflow IS the observed fan-out: let the execution-
-                # time guard re-check the fragment decision before paying
-                # the retry dispatch (raises SwitchPoint to abandon)
-                guard.observe_fragment(total, capacity)
-            capacity = capacity_bucket(total)  # rare: bucket overflowed
+            hint = capacity_bucket(kept)
+        if hint_key is not None:
+            _BUCKET_HINTS.raise_to(hint_key, capacity_bucket(kept))
         with finish:
+            finish.set("kept", kept)
             if spec.agg is not None:
-                if (spec.agg[1] in ("min", "max")
-                        and int(fetched["agg_n"]) == 0):
+                if spec.agg[1] in ("min", "max") and kept == 0:
                     raise ValueError(
                         f"{spec.agg[1]} over an empty result has no identity")
                 result = float(fetched["scalar"])
@@ -1088,11 +1227,8 @@ def run_fused(spec: FusedSpec, build: Relation, probe: Relation,
 
 
 # Verified per-partition capacities by (fragment, partitions, key-column
-# tokens): content-addressed, so a mutated table simply misses and re-plans.
-# Bounded as a backstop; overflow costs at most one extra retry per entry.
-_CAP_HINTS: Dict[tuple, int] = {}
-_CAP_HINT_LOCK = threading.Lock()
-_CAP_HINTS_CAP = 512
+# tokens).
+_CAP_HINTS = _Hints()
 
 
 def _run_fused_sharded(spec: FusedSpec, build: Relation, probe: Relation,
@@ -1142,8 +1278,7 @@ def _run_fused_sharded(spec: FusedSpec, build: Relation, probe: Relation,
         hint_key = (spec.cache_signature(), num_parts,
                     column_token(build[spec.join_key]),
                     column_token(probe[spec.join_key]))
-        with _CAP_HINT_LOCK:
-            capacity = max(capacity, _CAP_HINTS.get(hint_key, 0))
+        capacity = max(capacity, _CAP_HINTS.get(hint_key, 0))
         while True:
             cache_key = ("sharded", spec.cache_signature(), num_parts,
                          capacity, bucket_b, bucket_p, bsig, psig,
@@ -1172,12 +1307,7 @@ def _run_fused_sharded(spec: FusedSpec, build: Relation, probe: Relation,
             if max_part <= capacity:
                 # remember the verified minimal bucket (max() keeps it from
                 # ever shrinking a future optimistic estimate)
-                with _CAP_HINT_LOCK:
-                    if len(_CAP_HINTS) >= _CAP_HINTS_CAP:
-                        _CAP_HINTS.clear()
-                    _CAP_HINTS[hint_key] = max(
-                        _CAP_HINTS.get(hint_key, 0),
-                        partition_bucket(max_part))
+                _CAP_HINTS.raise_to(hint_key, partition_bucket(max_part))
                 break
             capacity = partition_bucket(max_part)  # rare: skewed overflow
         with span("finish") as s:
