@@ -13,9 +13,13 @@ each built through the engine's session API by
 ``portbench/queries/<query>.py`` and answered plainly by
 ``portbench/reference/<query>.py``.  Every metric, end-to-end or
 per-layer, is read by ``portbench/metrics/<metric>.py``, which returns
-nothing where it finds nothing to read.  A new cell, configuration,
-deployment's data, loop, query or metric is new files and entries, never
-an edit here.
+nothing where it finds nothing to read.  The CPU tests find the rest the
+same way: a query names in ``FAULTS`` the faults its answer must fail
+under, each planted by ``portbench/faults/<fault>.py``, and a
+configuration may give its tables' sizes for those tests under
+``"tiny"`` (``portbench/tiny.py``).  A new cell, configuration,
+deployment's data, loop, query, fault or metric is new files and
+entries, never an edit here.
 
 The system under test is ``repro_torch``: its ``QueryServer.submit`` runs
 ``Session.execute`` (planner, path selector, broker and governor,
@@ -179,6 +183,9 @@ class Run:
     window_start: float
     peak_bytes: int = 0      # allocated on the fullest card in the window
     trace: object = None
+    #: rows of the reference's answer to each query of the mix that
+    #: answers with rows (a GROUP BY's groups)
+    answer_rows: Dict[str, int] = dataclasses.field(default_factory=dict)
 
     def answered(self) -> List[Query]:
         return [q for q in self.queries if q.error is None]
@@ -309,9 +316,12 @@ def setup(cfg: dict, traffic: dict, seed: int, device, split: dict):
 # The run
 # ---------------------------------------------------------------------------
 
-def compared(tables, traffic: dict, queries: List[Query], device):
+def compared(tables, traffic: dict, queries: List[Query], device,
+             answer_rows: Optional[Dict[str, int]] = None):
     """``[(name, kind, value)]``: each query of the mix's answers in the
-    window against its plain reference, worked out on ``device``."""
+    window against its plain reference, worked out on ``device``.  Where
+    given, ``answer_rows`` gets the rows of each reference answer that is
+    a relation."""
     from .reference import compare
 
     numbers = []
@@ -320,9 +330,12 @@ def compared(tables, traffic: dict, queries: List[Query], device):
                                              device)
         mine = [q for q in queries if q.name == name and q.error is None]
         if isinstance(want, dict):
+            n_rows = len(next(iter(want.values())))
+            if answer_rows is not None:
+                answer_rows[name] = n_rows
             kept = [q.rows for q in mine if q.rows is not None]
             wrong = (sum(compare.rows_wrong(r, want) for r in kept)
-                     if kept else len(next(iter(want.values()))))
+                     if kept else n_rows)
             numbers.append((f"{name}_rows_wrong", "rows_wrong", wrong))
         else:
             err = (max(compare.scalar_err(q.scalar, want) for q in mine)
@@ -397,8 +410,9 @@ def run_cell(cell_name: str, seed: int, seconds: float, trace: bool,
         torch.cuda.empty_cache()
 
     # the reference, once the window has closed and the program is freed
+    answer_rows: Dict[str, int] = {}
     numbers = compared(tables, traffic, queries,
-                       f"cuda:{cards[0]}" if cards else "cpu")
+                       f"cuda:{cards[0]}" if cards else "cpu", answer_rows)
     failed = [q for q in queries if q.error is not None]
     numbers.append(("failed", "failed", len(failed)))
     numbers.append(("over_budget", "over_budget", over_budget))
@@ -409,7 +423,7 @@ def run_cell(cell_name: str, seed: int, seconds: float, trace: bool,
     run = Run(config=cfg, rows=table_rows(tables),
               modules={n: query_module(n) for n in mix}, queries=queries,
               cold_query_s=cold[mix[0]], setup_s=setup_s, seconds=seconds,
-              window_start=t_w0, peak_bytes=peak)
+              window_start=t_w0, peak_bytes=peak, answer_rows=answer_rows)
     del tables
     units = {m["name"]: m["unit"] for m in bench["end_to_end"]
              + bench["per_layer"]}

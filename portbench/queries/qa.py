@@ -7,6 +7,8 @@
 does not hold.  Its plain reference is ``portbench/reference/qa.py``.
 """
 
+#: the faults its answer must fail under (``portbench/faults/``)
+FAULTS = ("answer_altered", "probe_rows_halved")
 #: the tables of its one join: (build, probe)
 JOIN = ("orders", "lineitem")
 

@@ -7,6 +7,8 @@ equal keys (lines of one order) keep the order of ``lineitem``.  Its plain
 reference is ``portbench/reference/qb.py``.
 """
 
+#: the faults its answer must fail under (``portbench/faults/``)
+FAULTS = ("answer_altered", "probe_rows_halved")
 #: the tables of its one join: (build, probe)
 JOIN = ("orders", "lineitem")
 

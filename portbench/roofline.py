@@ -19,6 +19,7 @@ PEAK_POWER_W = 700.0
 KEY_BYTES = 8       # an int64 join key, as the tables hold it
 ROW_ID_BYTES = 4    # an int32 build-row number: every build side here has
                     # fewer than 2**31 rows
+GROUP_OUT_BYTES = 8  # a group's key or aggregate, as an int64 or float64
 
 
 def join_bytes(n_build: int, n_probe: int) -> int:
@@ -27,6 +28,16 @@ def join_bytes(n_build: int, n_probe: int) -> int:
     row's number written once (a key-foreign-key join: at most one
     match)."""
     return (n_build + n_probe) * KEY_BYTES + n_probe * ROW_ID_BYTES
+
+
+def group_bytes(n_rows: int, widths, n_groups: int, n_aggs: int) -> int:
+    """Least bytes a GROUP BY over ``n_rows`` moves: the key column and
+    each summed column read once, ``widths`` being the bytes of one value
+    of each (a count reads no column), and each of the ``n_groups``
+    groups' key and ``n_aggs`` aggregates written once at
+    :data:`GROUP_OUT_BYTES`."""
+    return (n_rows * sum(widths)
+            + n_groups * (1 + n_aggs) * GROUP_OUT_BYTES)
 
 
 def least_seconds(nbytes: int, ops: int = 0) -> float:

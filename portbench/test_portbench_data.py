@@ -3,8 +3,9 @@ import numpy as np
 import pytest
 import torch
 
+from portbench import harness, tiny
 from portbench.data import tpch
-from portbench.reference import compare, qa, qb
+from portbench.reference import compare, qa, qb, qc, qe
 
 CFG = {"orders": 4000, "lineitem": 16000, "scale": 0.002}
 
@@ -70,6 +71,40 @@ def test_references_against_hand_computed_answers():
     assert rows["l_extendedprice"].tolist() == [100, 200, 400, 600]
 
 
+def _hand_lineitem():
+    return {"lineitem": {
+        "orderkey": np.array([1, 1, 2, 3, 4, 4, 5]),
+        "l_suppkey": np.array([3, 1, 3, 2, 1, 3, 2]),
+        "l_quantity": np.array([1, 2, 3, 4, 5, 6, 7]),
+        "l_extendedprice": np.array([100, 200, 300, 400, 500, 600,
+                                     2**40 + 700]),
+        # flag x 2 + status: R-F, A-F, N-O, R-F, A-F, N-F, R-F
+        "l_returnflag_linestatus": np.array([4, 0, 3, 4, 0, 2, 4])}}
+
+
+def test_group_references_against_hand_computed_answers():
+    tables = _hand_lineitem()
+    # supplier 1: lines 2 and 5; 2: lines 4 and 7; 3: lines 1, 3 and 6
+    rows = qc.answer(tables, {}, "cpu")
+    assert list(rows) == ["l_suppkey", "sum_l_extendedprice",
+                          "count_l_quantity"]
+    assert rows["l_suppkey"].tolist() == [1, 2, 3]
+    assert rows["sum_l_extendedprice"].tolist() == [700, 2**40 + 1100, 1000]
+    assert rows["count_l_quantity"].tolist() == [2, 2, 3]
+    # A-F: lines 2 and 5; N-F: line 6; N-O: line 3; R-F: lines 1, 4, 7
+    rows = qe.answer(tables, {}, "cpu")
+    assert list(rows) == ["l_returnflag_linestatus", "sum_l_quantity",
+                          "sum_l_extendedprice", "count_orderkey"]
+    assert rows["l_returnflag_linestatus"].tolist() == [0, 2, 3, 4]
+    assert rows["sum_l_quantity"].tolist() == [7, 6, 3, 12]
+    assert rows["sum_l_extendedprice"].tolist() == [700, 600, 300,
+                                                    2**40 + 1200]
+    assert rows["count_orderkey"].tolist() == [2, 1, 1, 3]
+    # the exact sum is lost in float32
+    lower = qe.answer(tables, {}, "cpu", dtype=torch.float32)
+    assert compare.rows_wrong(lower, rows) == 1
+
+
 def test_comparison_counts_every_difference():
     want = {"a": np.array([1, 2, 3]), "b": np.array([4, 5, 6])}
     assert compare.rows_wrong(dict(want), want) == 0
@@ -85,17 +120,26 @@ def test_comparison_counts_every_difference():
     assert not ok and checks["qa_abs_err"] == {"value": 1.0, "limit": 0}
 
 
+#: the TPC-H tables' sizes for the control's test: at :data:`tiny.TINY`'s
+#: the joined prices stay within int32
+CONTROL_SIZES = dict(CFG, orders=10000, lineitem=40000, scale=2.0)
+
+
+@pytest.mark.parametrize("cell", tiny.CELLS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
-def test_lower_precision_control_is_not_correct(dtype):
+def test_lower_precision_control_is_not_correct(cell, dtype):
     """The control: the reference in a lower precision, in the program's
-    place, fails the comparison on the cell's own mix, at a tiny size."""
-    from portbench import harness
+    place, fails the comparison on each cell's own mix, at a tiny size: the
+    configuration's ``"tiny"`` sizes, or :data:`CONTROL_SIZES`."""
     from portbench.control import control_numbers
 
-    traffic = harness.traffic_of("q3-8streams")
+    cell, entry = harness.cell_of(tiny.bench(), cell)
+    cfg = harness.config_of(entry)
+    cfg.update(cfg.get("tiny", CONTROL_SIZES))
+    traffic = harness.traffic_of(cell["traffic"])
     for seed in (1, 2, 3):
-        tables = harness.host_tables(tpch.make_tables(
-            dict(CFG, orders=10000, lineitem=40000, scale=2.0), seed, "cpu"))
+        tables = harness.host_tables(harness.data_module(cfg["data"])
+                                     .make_tables(cfg, seed, "cpu"))
         numbers = control_numbers(tables, traffic, "cpu", dtype)
         _, ok = compare.checks(numbers)
         assert not ok, (seed, numbers)

@@ -7,19 +7,26 @@ this size ``auto`` would answer on the host; over the eight lanes of a
 sharded cell by the path selector's decision set to them, since ``auto``
 prices the lanes by the CPU's own measured times, which other test
 processes sway (``tensor`` decides one device).  Each plants one fault of
-those the cell can have in the engine: an answer altered where it is
-produced, half of the probe rows left out of the join, and, where the
-cell spans cards, the exchange between them left out."""
+those the cell can have in the engine, found by name as every other part
+of the harness (``portbench/faults/<fault>.py``: ``plant(monkeypatch)``):
+each fault that a query of the cell's mix names in ``FAULTS`` (an answer
+altered where it is produced, half of the rows of the operator that
+consumes the query's largest input left out) and, where the cell spans
+cards, the exchange between them left out."""
 import dataclasses
 
 import pytest
 
-from portbench import tiny
-from repro_torch.core import fused
+from portbench import harness, tiny
 from repro_torch.core.path_selector import PathSelector
 
 CELLS = tiny.CELLS
 SHARDED = tiny.SHARDED
+#: every (cell, fault) the cells' queries name
+PAIRS = [(cell, fault) for cell in CELLS for fault in tiny.faults(cell)]
+#: every query of the cells' mixes
+QUERIES = sorted({q for cell in CELLS for q in harness.traffic_of(
+    harness.cell_of(tiny.bench(), cell)[0]["traffic"])["mix"]})
 
 
 @pytest.fixture(autouse=True)
@@ -53,46 +60,31 @@ def test_sound_run_is_correct(cell):
     assert result["correct"] is True, checks
 
 
-@pytest.mark.parametrize("cell", CELLS)
-def test_altered_answer_is_caught(cell, monkeypatch):
-    fetch = fused._fetch
+def _wrong(checks) -> bool:
+    """Whether some answer compared with the reference was wrong."""
+    return any(v["value"] > 0 for k, v in checks.items()
+               if k.endswith(("_abs_err", "_rows_wrong")))
 
-    def altered(out):
-        got = fetch(out)
-        if "scalar" in got:
-            got["scalar"] = got["scalar"] + 1
-        if "l_extendedprice" in got.get("cols", {}):
-            got["cols"]["l_extendedprice"] = got["cols"]["l_extendedprice"] + 1
-        return got
 
-    monkeypatch.setattr(fused, "_fetch", altered)
+@pytest.mark.parametrize("query", QUERIES)
+def test_every_query_names_faults_that_are_found(query):
+    names = getattr(harness.query_module(query), "FAULTS", ())
+    assert names, f"{query} names no fault its answer must fail under"
+    for name in names:
+        assert callable(harness._load_file("faults", name).plant), name
+
+
+@pytest.mark.parametrize("cell,fault", PAIRS)
+def test_planted_fault_is_caught(cell, fault, monkeypatch):
+    harness._load_file("faults", fault).plant(monkeypatch)
     result, checks = _run(cell)
     assert result["correct"] is False
-    assert any(v["value"] > 0 for k, v in checks.items()
-               if k.endswith(("_abs_err", "_rows_wrong"))), checks
-
-
-@pytest.mark.parametrize("cell", CELLS)
-def test_half_the_probe_rows_left_out_is_caught(cell, monkeypatch):
-    for name in ("_join_dense", "_join_sorted", "_join_sorted_run"):
-        core = getattr(fused, name)
-
-        def halved(*args, _core=core, _name=name, **kw):
-            args = list(args)
-            i = 2 if _name == "_join_sorted_run" else 3   # n_probe
-            args[i] = args[i] // 2
-            return _core(*args, **kw)
-
-        monkeypatch.setattr(fused, name, halved)
-    result, checks = _run(cell)
-    assert result["correct"] is False, checks
+    assert _wrong(checks), checks
 
 
 @pytest.mark.parametrize("cell", SHARDED)
 def test_exchange_between_cards_left_out_is_caught(cell, monkeypatch):
-    combine = dict(fused._COMBINE)
-    combine["sum"] = lambda partials: partials[0]   # the first card's only
-    monkeypatch.setattr(fused, "_COMBINE", combine)
+    harness._load_file("faults", "exchange_left_out").plant(monkeypatch)
     result, checks = _run(cell)
     assert result["correct"] is False
-    assert checks["qa_abs_err"]["value"] > 0, checks
+    assert _wrong(checks), checks
